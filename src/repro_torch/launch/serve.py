@@ -1,0 +1,142 @@
+"""Serving entry point of the port over the continuous-batching engine
+(counterpart of `repro/launch/serve.py`, same flags plus ``--device``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --mode continuous --slots 8 --requests 16 --prompt-len 256 \
+        --gen-len 64 --prefill-chunk 64 --cache-len 512
+
+Runs on CUDA unless ``--device cpu`` is given. Dense archs only: MoE and the
+lock-step path of the SSM/hybrid archs raise until ported (ROADMAP.md,
+Queue A). Loads params from --ckpt (theta_g of a JAX training run, or a bare
+param pytree) or random-inits them from a seeded torch.Generator.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import load_pytree
+from repro_torch.configs import get_config
+from repro_torch.kernels import resolve_device
+from repro_torch.models import api
+from repro_torch.serve import Request, ServeEngine
+from repro_torch.weights import params_from_jax
+
+FUSED_TODO = ("fused-mode checkpoints (flat fragment plane) need "
+              "core/fragments.py and core/flatplane.py, which are not ported "
+              "yet (ROADMAP.md, Queue A: 'fused-checkpoint loading')")
+
+
+def load_params(cfg, ckpt, device=None, seed: int = 0):
+    """Master params of `cfg` on `device`: from a JAX-package checkpoint, or
+    random from a torch.Generator seeded with `seed`."""
+    device = resolve_device(device)
+    if not ckpt:
+        gen = torch.Generator(device).manual_seed(seed)
+        return api.init_params(cfg, gen, device)
+    state = load_pytree(ckpt)
+    if isinstance(state, dict) and state.get("format") == "trainer_state_v1":
+        # full-run checkpoint (launch/train --ckpt): the consensus model
+        # lives in the serialized EngineState
+        meta = state.get("meta", {})
+        arch = meta.get("arch")
+        if arch and arch != cfg.name:
+            raise ValueError(f"checkpoint was trained on arch {arch!r}, "
+                             f"serving requested {cfg.name!r}")
+        params = state["trainer_state"]["engine"]["theta_g"]
+        if meta.get("fused_updates") and not isinstance(params, dict):
+            raise NotImplementedError(FUSED_TODO)
+    else:
+        params = state["theta_g"] if "theta_g" in state else state
+    return params_from_jax(cfg, params, device)
+
+
+def make_requests(cfg, args):
+    """The seeded request trace `repro.launch.serve` draws for these flags."""
+    rng = np.random.default_rng(args.seed)
+    reqs = []
+    t = 0.0
+    for i in range(args.requests):
+        t += float(rng.exponential(1.0 / max(args.rps, 1e-9)))
+        P = int(rng.integers(max(2, args.prompt_len // 2), args.prompt_len + 1))
+        reqs.append(Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, size=P).astype(np.int32),
+            max_new_tokens=int(rng.integers(max(1, args.gen_len // 2),
+                                            args.gen_len + 1)),
+            arrival_s=t))
+    return reqs
+
+
+def _serve_engine(cfg, params, args) -> ServeEngine:
+    """Transformer serving on the slot-plane engine (continuous or static)."""
+    reqs = make_requests(cfg, args)
+    cache_len = max(args.cache_len,
+                    api.decode_cache_len(cfg, args.prompt_len + args.gen_len))
+    eng = ServeEngine(cfg, params, n_slots=args.slots, cache_len=cache_len,
+                      max_prompt=args.prompt_len,
+                      prefill_chunk=args.prefill_chunk, mode=args.mode,
+                      temperature=args.temperature, seed=args.seed,
+                      device=args.device)
+    recs = eng.run_trace(reqs)
+    s = eng.stats()
+    print(f"mode={args.mode} slots={args.slots} completed={s['completed']}"
+          f"/{len(reqs)} device={eng.device}")
+    print(f"  virtual: {s['tok_per_s']:.1f} tok/s  occupancy "
+          f"{s['occupancy']:.2f}  ttft p50/p99 {s['ttft_p50_s']*1e3:.0f}/"
+          f"{s['ttft_p99_s']*1e3:.0f} ms  tok-latency p99 "
+          f"{s['tok_latency_p99_s']*1e3:.1f} ms")
+    launches = ", ".join(f"{k} {v}" for k, v in eng.kernel_launches().items())
+    print(f"  dispatches: {s['decode_dispatches']} decode, "
+          f"{s['prefill_dispatches']} prefill; kernel launches: {launches}; "
+          f"wall {s['wall_s']:.2f}s ({s['total_tokens'] / s['wall_s']:.1f} "
+          f"tok/s)")
+    for rec in recs[:4]:
+        head = rec.tokens[:16]
+        print(f"  req{rec.rid}: {head}{'...' if len(rec.tokens) > 16 else ''}")
+    return eng
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--mode", default="continuous",
+                    choices=["continuous", "static"])
+    ap.add_argument("--slots", type=int, default=8,
+                    help="decode slots (batch lanes)")
+    ap.add_argument("--cache-len", type=int, default=0)
+    ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--rps", type=float, default=4.0,
+                    help="mean request arrival rate on the virtual clock")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; never falls back)")
+    return ap.parse_args(argv)
+
+
+def run(argv=None) -> ServeEngine:
+    """Parse flags, load params, serve the trace; returns the engine."""
+    args = parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    api.family_module(cfg)          # raises for families not ported yet
+    params = load_params(cfg, args.ckpt, args.device)
+    return _serve_engine(cfg, params, args)
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

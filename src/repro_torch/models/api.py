@@ -1,0 +1,62 @@
+"""Model API of the port: dispatch by cfg.family (counterpart of
+`repro/models/api.py`). The serving slice ports the dense family; the other
+families raise until their ROADMAP.md item lands."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+_FAMILY_MOD = {"dense": transformer}
+
+_TODO = {
+    "moe": transformer.MOE_TODO,
+    "ssm": "the SSM family and its lock-step serving path are not ported yet "
+           "(ROADMAP.md, Queue A: 'lock-step SSM/hybrid serving')",
+    "hybrid": "the hybrid family and its lock-step serving path are not "
+              "ported yet (ROADMAP.md, Queue A: 'lock-step SSM/hybrid "
+              "serving')",
+}
+
+
+def family_module(cfg: ModelConfig):
+    if cfg.family in _FAMILY_MOD and cfg.moe is None:
+        return _FAMILY_MOD[cfg.family]
+    family = "moe" if cfg.moe is not None else cfg.family
+    raise NotImplementedError(_TODO.get(
+        family, f"family {family!r} is not ported yet (ROADMAP.md, Queue A: "
+                f"'other model families')"))
+
+
+def init_params(cfg: ModelConfig, gen, device=None):
+    return family_module(cfg).init_params(cfg, gen, device)
+
+
+def prepare_params(cfg: ModelConfig, params):
+    return family_module(cfg).prepare_params(cfg, params)
+
+
+def init_slot_cache(cfg: ModelConfig, n_slots: int, cache_len: int,
+                    device=None):
+    return family_module(cfg).init_slot_cache(cfg, n_slots, cache_len, device)
+
+
+def decode_step_slotted(cfg: ModelConfig, params, cache, tokens, **kw):
+    return family_module(cfg).decode_step_slotted(cfg, params, cache, tokens,
+                                                  **kw)
+
+
+def prefill_chunk_slotted(cfg: ModelConfig, params, cache, tokens, slot,
+                          start, n_valid, **kw):
+    return family_module(cfg).prefill_chunk_slotted(cfg, params, cache, tokens,
+                                                    slot, start, n_valid, **kw)
+
+
+def decode_cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Effective KV-cache length for a decode shape: ring-buffer bounded by the
+    native or long-decode window for windowed archs; full length otherwise."""
+    if cfg.family == "ssm":
+        return 1  # unused: constant-size state
+    win = cfg.attn_window or cfg.long_decode_window
+    if cfg.family == "hybrid":
+        win = cfg.attn_window
+    return min(seq_len, win) if win else seq_len

@@ -1,0 +1,208 @@
+"""Decoder-only transformer of the port, dense family: the serving path of
+`repro/models/transformer.py` (params, slot-plane cache, slotted decode step,
+chunked slotted prefill).
+
+The JAX package scans over stacked layer params under jit; here a Python
+loop walks the same stacked tensors eagerly. The serving functions update
+the slot-plane cache IN PLACE (the JAX ones return a new cache): the cache is
+the largest tensor of the engine, and nothing reads its old value.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.models.layers import (attn_out, attn_qkv,
+                                       cast_params_for_compute, dense_init,
+                                       embed_init, gqa_attention, rms_norm,
+                                       swiglu, torch_dtype)
+
+MOE_TODO = ("MoE serving is not ported yet (ROADMAP.md, Queue A: "
+            "'MoE serving')")
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.moe is not None or cfg.family != "dense":
+        raise NotImplementedError(MOE_TODO if cfg.moe is not None else
+                                  f"family {cfg.family!r} is not ported yet "
+                                  f"(ROADMAP.md, Queue A)")
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+
+def param_shapes(cfg: ModelConfig):
+    """Nested dict of the param shapes, in the JAX package's layout and
+    tree paths (``layers/attn/wq`` ...)."""
+    _check_dense(cfg)
+    L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    attn = {"wq": (L, D, H * hd), "wk": (L, D, KV * hd),
+            "wv": (L, D, KV * hd), "wo": (L, H * hd, D)}
+    if cfg.qk_norm:
+        attn.update(q_norm=(L, hd), k_norm=(L, hd))
+    if cfg.attn_bias:
+        attn.update(bq=(L, H * hd), bk=(L, KV * hd), bv=(L, KV * hd),
+                    bo=(L, D))
+    shapes = {
+        "embed": (V, D),
+        "layers": {"attn": attn, "ln1": (L, D), "ln2": (L, D),
+                   "mlp": {"w_gate": (L, D, F), "w_up": (L, D, F),
+                           "w_down": (L, F, D)}},
+        "final_norm": (D,),
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (D, V)
+    return shapes
+
+
+_ONES = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+_ZEROS = ("bq", "bk", "bv", "bo")
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, device=None):
+    """Random master params in the JAX package's layout and init scheme
+    (embed N(0, 0.02); projections N(0, 1/fan_in); norms 1; biases 0),
+    drawn from `gen` (a generator on `device`) in `param_shapes` order."""
+    dtype = torch_dtype(cfg.param_dtype)
+
+    def init(name, shape):
+        if isinstance(shape, dict):
+            return {k: init(k, v) for k, v in shape.items()}
+        if name in _ONES:
+            return torch.ones(shape, dtype=dtype, device=device)
+        if name in _ZEROS:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        if name == "embed":
+            return embed_init(gen, shape, dtype, device)
+        return dense_init(gen, shape, dtype, device)
+
+    return init("", param_shapes(cfg))
+
+
+def lm_head_weight(cfg: ModelConfig, params):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def prepare_params(cfg: ModelConfig, params):
+    """Master params -> the params the serving functions take: cast once to
+    the compute dtype, plus ``lm_head_f32``, the compute-dtype head widened
+    to f32 (the JAX package's ``lm_head.astype(f32)``), held once."""
+    _check_dense(cfg)
+    cp = cast_params_for_compute(cfg, params)
+    cp["lm_head_f32"] = lm_head_weight(cfg, cp).float()
+    return cp
+
+
+def _layer(params, l: int):
+    def pick(tree):
+        return {k: pick(v) if isinstance(v, dict) else v[l]
+                for k, v in tree.items()}
+    return pick(params["layers"])
+
+
+def _logits(cfg: ModelConfig, params, x, impl: str):
+    h = rms_norm(x, params["final_norm"], cfg.rms_eps, impl=impl)
+    return h.float() @ params["lm_head_f32"]
+
+
+def _ffn(cfg: ModelConfig, x, lp, impl: str):
+    h = rms_norm(x, lp["ln2"], cfg.rms_eps, impl=impl)
+    mlp = lp["mlp"]
+    return x + swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# slot-plane serving
+# ---------------------------------------------------------------------------
+
+
+def init_slot_cache(cfg: ModelConfig, n_slots: int, cache_len: int,
+                    device=None):
+    """Slot-plane KV cache: every slot carries its own ring-buffer position
+    map (-1 = empty) and decode position."""
+    hd = cfg.resolved_head_dim
+    shape = (cfg.n_layers, n_slots, cache_len, cfg.n_kv_heads, hd)
+    dt = torch_dtype(cfg.compute_dtype)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "kv_pos": torch.full((n_slots, cache_len), -1, dtype=torch.int32,
+                             device=device),
+        "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
+    }
+
+
+def decode_step_slotted(cfg: ModelConfig, params, cache, tokens, *, active,
+                        window: Optional[int] = None, impl: str = "auto"):
+    """One decode step over the whole slot plane. params: from
+    `prepare_params`; tokens: (B,) int (last sampled token per slot); active:
+    (B,) bool. Every slot is computed, but only active slots write their
+    cache row and advance their position. Updates `cache` in place and
+    returns (logits (B, V) f32, cache)."""
+    window = window if window is not None else cfg.attn_window
+    pos = cache["pos"]                                  # (B,)
+    C = cache["k"].shape[2]
+    rows = torch.nonzero(active).squeeze(1)             # active slots only
+    wcol = (pos[rows] % C).long()
+    cache["kv_pos"][rows, wcol] = pos[rows]
+    x = params["embed"][tokens][:, None, :]
+    positions = pos[:, None]                            # (B, 1)
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        h = rms_norm(x, lp["ln1"], cfg.rms_eps, impl=impl)
+        q, k, v = attn_qkv(h, lp["attn"], cfg, positions, impl=impl)
+        kc, vc = cache["k"][l], cache["v"][l]           # (B, C, KV, hd) views
+        kc[rows, wcol] = k[rows, 0]
+        vc[rows, wcol] = v[rows, 0]
+        o = fd_ops.flash_decode(q[:, 0], kc, vc, cache["kv_pos"], pos,
+                                window=window, impl=impl)[:, None]
+        x = x + attn_out(o, lp["attn"], cfg)
+        x = _ffn(cfg, x, lp, impl)
+    logits = _logits(cfg, params, x[:, 0], impl)
+    cache["pos"] += active.to(torch.int32)
+    return logits, cache
+
+
+def prefill_chunk_slotted(cfg: ModelConfig, params, cache, tokens, slot: int,
+                          start: int, n_valid: int, *,
+                          window: Optional[int] = None, impl: str = "auto"):
+    """Prefill one chunk of one slot's prompt into the slot plane. tokens:
+    (Pc,) int (entries past n_valid ignored). Writes the chunk's K/V into the
+    slot's ring at positions start..start+n_valid-1, sets
+    cache['pos'][slot] = start + n_valid (in place), and returns
+    (logits (V,) f32 at the chunk's last valid token, cache)."""
+    if not 1 <= n_valid <= tokens.shape[0]:
+        raise ValueError(f"n_valid {n_valid} outside [1, {tokens.shape[0]}]")
+    window = window if window is not None else cfg.attn_window
+    C = cache["k"].shape[2]
+    ar = torch.arange(start, start + n_valid, dtype=torch.int32,
+                      device=tokens.device)
+    positions = ar[None]                                # (1, n)
+    wcol = (ar % C).long()
+    kv_row = cache["kv_pos"][slot]                      # (C,) view
+    kv_row[wcol] = ar
+    kv_mask = (kv_row >= 0)[None]
+    x = params["embed"][tokens[:n_valid]][None]
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        h = rms_norm(x, lp["ln1"], cfg.rms_eps, impl=impl)
+        q, k, v = attn_qkv(h, lp["attn"], cfg, positions, impl=impl)
+        kc, vc = cache["k"][l, slot], cache["v"][l, slot]   # (C, KV, hd)
+        kc[wcol] = k[0]
+        vc[wcol] = v[0]
+        # chunk queries attend over the updated row: earlier cache content
+        # plus the in-chunk prefix, both selected by position (kp <= qp)
+        o = gqa_attention(q, kc[None], vc[None], causal=True, window=window,
+                          q_positions=positions, kv_positions=kv_row[None],
+                          kv_mask=kv_mask)
+        x = x + attn_out(o, lp["attn"], cfg)
+        x = _ffn(cfg, x, lp, impl)
+    logits = _logits(cfg, params, x[0, n_valid - 1], impl)
+    cache["pos"][slot] = start + n_valid
+    return logits, cache
