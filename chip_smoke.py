@@ -17,7 +17,21 @@ Phases, in order; any failure raises and exits non-zero before the last line:
   6. a torch.profiler trace of a short run: device busy share and the
      kernels that take the device's time;
   7. parity of the kernel path and the plain path at full width (f32:
-     identical greedy tokens; bf16: agreement share and logit difference).
+     identical greedy tokens; bf16: agreement share and logit difference);
+  8. the outer-update kernels (`nesterov_2d`, `deliver_2d` blend and
+     compensate with one worker offline) and `delay_comp` (with and without
+     the broadcast global leaf) against their plain versions at paper_150m's
+     fragment shapes (M=4) and a small ragged one, with times;
+  9. training at full width: `repro_torch.launch.train` on paper_150m
+     (cocodc, streaming and diloco, all `--fused-updates`), step time,
+     tokens/s, peak memory, eval NLL, stats, and exact launch counts;
+ 10. the per-leaf engine with dc_impl="kernel" against dc_impl="ref" on
+     the paper_150m params stack, with its exact `delay_comp` launch count,
+     and the host time of a delivering step in both layouts;
+ 11. a torch.profiler trace of full-width training steps;
+ 12. parity of a full-width f32 training run through the kernels with the
+     same run through their plain versions (identical stats, NLL within
+     1e-4 relative).
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -27,12 +41,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
@@ -333,6 +349,352 @@ def parity_phase():
 
 
 # ---------------------------------------------------------------------------
+# training slice: outer-update and delay-comp kernels
+# ---------------------------------------------------------------------------
+
+
+PAPER_TRAIN_ARGS = ["--arch", "paper_150m", "--workers", "4", "--fragments",
+                    "4", "--H", "24", "--tau", "8", "--local-batch", "8",
+                    "--seq-len", "256", "--device", "cuda"]
+F32 = 4
+
+
+def plane_err(got, want):
+    """Max |got - want| after checking the stated tolerance of the
+    outer-update kernels: allclose at rtol 1e-5, atol 1e-6 (the kernels
+    round every operation in the plain version's order; the slack covers
+    the card's and the CPU's elementwise libraries)."""
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= 1e-6 + 1e-5 * want.float().abs()).all()),
+          f"kernel disagrees with plain version: max err {err.max().item()}")
+    return err.max().item()
+
+
+def paper_fragment_rows():
+    """paper_150m's K=4 strided fragment row counts (shapes only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fragments import make_fragmenter
+    from repro_torch.models import api
+    cfg = get_config("paper_150m")
+    frag = make_fragmenter(cfg, api.param_specs(cfg), 4)
+    return frag, [frag.flat.rows(p) for p in range(4)]
+
+
+def outer_update_phase(dev, timer):
+    from repro_torch.kernels.delay_comp.ops import delay_comp_array
+    from repro_torch.kernels.delay_comp.ref import delay_comp_ref
+    from repro_torch.kernels.outer_update.ops import (fused_deliver,
+                                                      outer_nesterov)
+    from repro_torch.kernels.outer_update.ref import deliver_ref, nesterov_ref
+    frag, rows = paper_fragment_rows()
+    gen = torch.Generator(dev).manual_seed(2)
+    M = 4
+    lr, mu = 0.7, 0.9
+    kw = dict(tau=torch.tensor(8.0, device=dev), lam=0.5, H=24.0, sign=1.0)
+    errs = {"nesterov_2d": 0.0, "deliver_2d": 0.0, "delay_comp": 0.0}
+    times = {}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    cases = [("fragment 0", rows[0], True), ("fragment 2", rows[2], False),
+             ("ragged 37 rows", 37, False)]
+    for name, R, timed in cases:
+        theta = rnd(R, 1024, scale=0.02)
+        mom, delta = rnd(R, 1024, scale=1e-3), rnd(R, 1024, scale=1e-3)
+        got = outer_nesterov(theta, mom, delta, lr=lr, mu=mu)
+        torch.cuda.synchronize()
+        want = nesterov_ref(theta, mom, delta, lr=lr, mu=mu)
+        errs["nesterov_2d"] = max(errs["nesterov_2d"], plane_err(got[0], want[0]),
+                                  plane_err(got[1], want[1]))
+        g = theta + rnd(R, 1024, scale=1e-3)
+        local = theta[None] + rnd(M, R, 1024, scale=1e-3)
+        snap = theta[None] + rnd(M, R, 1024, scale=1e-3)
+        if not timed:
+            # the engine's snapshot is a row slice of the full-model plane:
+            # its worker axis is strided
+            full = torch.zeros(M, R + 9, 1024, device=dev)
+            full[:, 5:5 + R] = snap
+            snap = full[:, 5:5 + R]
+        avail = torch.tensor([True, False, True, True], device=dev)
+        for mode, extra in (("blend", {"alpha": 0.5}), ("compensate", kw)):
+            s = snap if mode == "compensate" else None
+            got = fused_deliver(local, s, g, avail, mode=mode, **extra)
+            torch.cuda.synchronize()
+            want = deliver_ref(local, s, g, avail, mode=mode, **extra)
+            errs["deliver_2d"] = max(errs["deliver_2d"], plane_err(got, want))
+            check(torch.equal(got[1], local[1]), "offline worker changed")
+        if not timed:
+            continue
+        plane = R * 1024 * F32
+        b, by = bound_ms(5 * plane, 6 * R * 1024, torch.float32)
+        times["nesterov_2d"] = {
+            "ms": timer(lambda: outer_nesterov(theta, mom, delta, lr=lr,
+                                               mu=mu)),
+            "plain_ms": timer(lambda: nesterov_ref(theta, mom, delta, lr=lr,
+                                                   mu=mu)),
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+        b, by = bound_ms((3 * M + 1) * plane, 11 * M * R * 1024,
+                         torch.float32)
+        times["deliver_2d"] = {
+            "ms": timer(lambda: fused_deliver(local, snap, g, avail,
+                                              mode="compensate", **kw)),
+            "plain_ms": timer(lambda: deliver_ref(local, snap, g, avail,
+                                                  mode="compensate", **kw)),
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+        b, by = bound_ms((2 * M + 1) * plane, 3 * M * R * 1024,
+                         torch.float32)
+        times["deliver_2d blend"] = {
+            "ms": timer(lambda: fused_deliver(local, None, g, avail,
+                                              mode="blend", alpha=0.5)),
+            "plain_ms": timer(lambda: deliver_ref(local, None, g, avail,
+                                                  mode="blend", alpha=0.5)),
+            "library_ms": timer(lambda: torch.lerp(local, g[None], 0.5)),
+            "bound_ms": b, "bound_by": by}
+    # delay_comp at the per-leaf engine's shapes: fragment 0's largest leaf
+    # (global leaf broadcast from (1, ...)), a norm leaf, a ragged leaf
+    biggest = max(frag.flat.chunks(0), key=lambda c: c.size)
+    leaf_cases = [(f"fragment 0 {biggest.path} broadcast",
+                   (M,) + biggest.shape, True, True),
+                  (f"fragment 0 {biggest.path}", (M,) + biggest.shape, False,
+                   False),
+                  ("ln rows (3, 768) broadcast", (M, 3, 768), True, False),
+                  ("ragged (3, 97) broadcast", (M, 3, 97), True, False),
+                  ("ragged (5, 33)", (M, 5, 33), False, False)]
+    dkw = dict(tau=torch.tensor(8.0, device=dev), lam=0.5, H=24.0, sign=1.0)
+    for name, shape, bcast, timed in leaf_cases:
+        tp = rnd(*shape, scale=0.02)
+        tl = tp + rnd(*shape, scale=1e-3)
+        tg = (tp[:1] if bcast else tp) + rnd(*((1,) + shape[1:] if bcast
+                                               else shape), scale=1e-3)
+        got = delay_comp_array(tl, tp, tg, **dkw)
+        torch.cuda.synchronize()
+        want = delay_comp_ref(tl, tp, tg, **dkw)
+        errs["delay_comp"] = max(errs["delay_comp"], plane_err(got, want))
+        if not timed:
+            continue
+        n, ng = tl.numel(), tg.numel()
+        b, by = bound_ms((3 * n + ng) * F32, 11 * n, torch.float32)
+        times["delay_comp"] = {
+            "ms": timer(lambda: delay_comp_array(tl, tp, tg, **dkw)),
+            "plain_ms": timer(lambda: delay_comp_ref(tl, tp, tg, **dkw)),
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "shape": list(shape)}
+    log(f"outer_update / delay_comp: kernel == plain at paper_150m fragment "
+        f"rows {rows[0]} and {rows[2]} (M=4, one worker offline; strided "
+        f"snapshot at fragment 2 and 37 rows), 37 rows, "
+        f"and leaves {[c[0] for c in leaf_cases]}; max abs err {errs}")
+    for name, r in times.items():
+        log(f"  time f32 {name}: " + json.dumps(r))
+    return errs, times
+
+
+def train_phase(method, steps, eval_every):
+    """One full-width training run through the CLI entry point, with its
+    launch counts. Returns (trainer, launches)."""
+    from repro_torch import kernels
+    from repro_torch.launch import train
+    argv = PAPER_TRAIN_ARGS + ["--method", method, "--fused-updates",
+                               "--steps", str(steps), "--eval-every",
+                               str(eval_every)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = train.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    s = tr.engine.stats()
+    M, B, S = (tr.ccfg.num_workers, tr.tcfg.local_batch, tr.tcfg.seq_len)
+    toks = steps * M * B * S
+    nlls = [r["nll"] for r in tr.history]
+    train_s = tr.run_seconds - tr.eval_seconds
+    log(f"train paper_150m {method} --fused-updates: {steps} steps in "
+        f"{wall:.3f} s wall ({wall - tr.run_seconds:.3f} s building, "
+        f"{tr.eval_seconds:.3f} s evals): "
+        f"{train_s / steps * 1e3:.1f} ms/step, {toks / train_s:.0f} "
+        f"tokens/s (synchronised, build and evals excluded); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; eval NLL "
+        f"{nlls}")
+    log("  stats: " + json.dumps(s))
+    log(f"  launches: {launches}")
+    check(all(np.isfinite(nlls)), "non-finite eval NLL")
+    deliveries = int(s["n_syncs"]) - len(tr.engine.pending)
+    check(deliveries > 0, "no delivery in the run")
+    check(launches["nesterov_2d"] == deliveries == launches["deliver_2d"],
+          f"nesterov_2d {launches['nesterov_2d']} / deliver_2d "
+          f"{launches['deliver_2d']} launches != deliveries {deliveries}")
+    check(launches["rms_norm"] == 0 and launches["flash_decode"] == 0,
+          "a kernel without a backward ran on the training path")
+    return tr, launches
+
+
+def training_phases():
+    """cocodc (compensate), streaming (blend) and diloco (nesterov + blend
+    at alpha=1 per round), each read with the counts reset just before."""
+    tr, launches = train_phase("cocodc", 48, 24)
+    nlls = [r["nll"] for r in tr.history]
+    # random init: logits ~ N(0, 1), NLL ~ ln 32000 + 1/2
+    uniform = math.log(32000)
+    check(abs(nlls[0] - uniform) < 1.5 and nlls[-1] < nlls[0],
+          f"eval NLL did not fall from ~ln 32000 = {uniform:.2f}: {nlls}")
+    total = dict(launches)
+    del tr
+    for method in ("streaming", "diloco"):
+        tr, launches = train_phase(method, 24, 12)
+        for k in total:
+            total[k] += launches[k]
+        del tr
+    torch.cuda.empty_cache()
+    return total
+
+
+def per_leaf_phase(dev, arch="paper_150m"):
+    """The per-leaf engine with dc_impl="kernel" (the delay_comp kernel per
+    leaf) against dc_impl="ref": `ProtocolEngine`s on the same paper_150m
+    params stack (M=4, calibrated paper network), driven step by step
+    through their cocodc schedule on identically perturbed params, with the
+    fused engine beside them to time one delivery in each layout."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import CoCoDCConfig
+    from repro_torch.core.fragments import make_fragmenter
+    from repro_torch.core.network import paper_network
+    from repro_torch.core.protocol import ProtocolEngine
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import api
+    cfg = get_config(arch)
+    M, K = 4, 4
+    ccfg = CoCoDCConfig(num_workers=M, local_steps=24, num_fragments=K,
+                        overlap_depth=8)
+    gen = torch.Generator(dev).manual_seed(3)
+    params = api.init_params(cfg, gen, dev)
+    frag = make_fragmenter(cfg, api.param_specs(cfg), K)
+    net = paper_network(M, fragment_bytes=frag.total_bytes // K, tau=8)
+    stacks, engines = {}, {}
+    for name, dc, fused in (("kernel", "kernel", False), ("ref", "ref", False),
+                            ("fused", "ref", True)):
+        stacks[name] = tree_map(
+            lambda a: a[None].repeat((M,) + (1,) * a.dim()), params)
+        engines[name] = ProtocolEngine(
+            "cocodc", dataclasses.replace(ccfg, fused_updates=fused), frag,
+            net, stacks[name], dc_impl=dc)
+    del params
+    expected, launched, delivered = 0, 0, []
+    deliver_ms = {name: [] for name in engines}
+    for t in range(30):
+        noise = [torch.randn(leaf.shape, generator=gen, device=dev) * 1e-3
+                 for leaf in tree_leaves(stacks["ref"])]
+        for name in stacks:
+            for leaf, n in zip(tree_leaves(stacks[name]), noise):
+                leaf.add_(n)
+        due = [ev.frag for ev in engines["kernel"].pending
+               if ev.deliver_at <= t]
+        delivered += [(t, p) for p in due]
+        expected += sum(len(frag.leaves_in(p)) for p in due)
+        for name in stacks:
+            if name == "kernel":
+                kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stacks[name] = engines[name].on_step_end(t, stacks[name])
+            torch.cuda.synchronize()
+            if due:
+                deliver_ms[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "kernel":
+                n = kernels.launch_counts()["delay_comp"]
+                check(n == sum(len(frag.leaves_in(p)) for p in due),
+                      f"delay_comp launches {n} at step {t}")
+                launched += n
+    stats = {name: e.stats() for name, e in engines.items()}
+    check(stats["kernel"] == stats["ref"] == stats["fused"],
+          "the engines' schedules differ")
+    err = max(plane_err(a, b) for a, b in zip(tree_leaves(stacks["kernel"]),
+                                               tree_leaves(stacks["ref"])))
+    log(f"per-leaf engine dc_impl=kernel vs ref, paper_150m M=4, 30 steps, "
+        f"(step, fragment) delivered {delivered}: params max abs err "
+        f"{err:.3g}; delay_comp launches {launched} (= leaves of the "
+        f"delivered fragments, {expected})")
+    log("  host ms of each delivering step (synchronised), per-leaf kernel, "
+        "per-leaf plain, fused kernels: " + json.dumps(
+            {name: [round(x, 3) for x in v]
+             for name, v in deliver_ms.items()}))
+    check(delivered, "no delivery in the per-leaf phase")
+    del stacks, engines
+    torch.cuda.empty_cache()
+    return {"delay_comp": launched}, err
+
+
+def train_profile_phase():
+    """Where the full-width training time goes: a torch.profiler trace of 6
+    cocodc fused steps (after 6 warm-up steps) spanning a protocol event."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import build_experiment
+    from repro_torch.launch import train
+    args = train.make_parser().parse_args(
+        PAPER_TRAIN_ARGS + ["--method", "cocodc", "--fused-updates",
+                            "--steps", "48", "--eval-every", "1000"])
+    tr = build_experiment(train.spec_from_args(args).validate(),
+                          device=DEVICE)
+    tr.run(steps=6, eval_every=1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(steps=12, eval_every=1000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")
+          and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in ev)
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:10]
+    log(f"profile paper_150m cocodc fused, steps 6-11: wall {wall:.3f} s "
+        f"({wall / 6 * 1e3:.1f} ms/step under the profiler); device busy "
+        f"{busy_us / 1e6:.3f} s ({busy_us / 6e3:.1f} ms/step) = "
+        f"{busy_us / 1e6 / wall:.1%} of wall")
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def train_parity_phase():
+    """A full-width f32 cocodc fused run through the kernels against the
+    same run through their plain versions (make_engine_fns(...,
+    fused_impl="ref")): identical stats, NLL within 1e-4 relative."""
+    from repro_torch.api import build_experiment
+    from repro_torch.launch import train
+    args = train.make_parser().parse_args(
+        PAPER_TRAIN_ARGS + ["--method", "cocodc", "--fused-updates",
+                            "--steps", "24", "--eval-every", "12"])
+    spec = train.spec_from_args(args).validate()
+    spec = dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, compute_dtype="float32"))
+    hist = {}
+    for impl in ("auto", "ref"):
+        tr = build_experiment(spec, device=DEVICE, fused_impl=impl)
+        hist[impl] = tr.run(eval_every=12)
+        del tr
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for a, b in zip(hist["auto"], hist["ref"]):
+        sa = {k: v for k, v in a.items()
+              if k not in ("train_loss", "nll", "ppl")}
+        sb = {k: v for k, v in b.items()
+              if k not in ("train_loss", "nll", "ppl")}
+        check(sa == sb, f"stats differ at step {a['step']}: {sa} vs {sb}")
+        worst = max(worst, abs(a["nll"] - b["nll"]) / abs(b["nll"]))
+    log(f"parity f32 full-width training (cocodc fused, 24 steps): kernel "
+        f"path stats == plain path stats; eval NLL "
+        f"{[r['nll'] for r in hist['auto']]} vs "
+        f"{[r['nll'] for r in hist['ref']]}, max rel diff {worst:.3g}")
+    check(worst <= 1e-4, f"f32 NLL differs by {worst} relative")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -368,6 +730,15 @@ def main() -> int:
     profile_phase()
     parity_phase()
 
+    t0 = time.perf_counter()
+    ou_err, ou_t = outer_update_phase(dev, timer)
+    log(f"outer-update kernel checks and timings in "
+        f"{time.perf_counter() - t0:.1f} s")
+    train_launches = training_phases()
+    leaf_launches, _ = per_leaf_phase(dev)
+    train_profile_phase()
+    train_parity_phase()
+
     entries = [
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -381,6 +752,25 @@ def main() -> int:
              launches=launches["rms_norm"], max_abs_err=rms_err,
              **{k: rms_t[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}),
+        dict(name="nesterov_2d", route="cuda",
+             source="src/repro_torch/kernels/csrc/outer_update.cu",
+             replaces="src/repro/kernels/outer_update/outer_update.py:48",
+             launches=train_launches["nesterov_2d"],
+             max_abs_err=ou_err["nesterov_2d"], **ou_t["nesterov_2d"]),
+        dict(name="deliver_2d", route="cuda",
+             source="src/repro_torch/kernels/csrc/outer_update.cu",
+             replaces="src/repro/kernels/outer_update/outer_update.py:90",
+             launches=train_launches["deliver_2d"],
+             max_abs_err=ou_err["deliver_2d"], **ou_t["deliver_2d"],
+             blend={k: ou_t["deliver_2d blend"][k] for k in
+                    ("ms", "plain_ms", "bound_ms", "library_ms")}),
+        dict(name="delay_comp", route="cuda",
+             source="src/repro_torch/kernels/csrc/delay_comp.cu",
+             replaces="src/repro/kernels/delay_comp/delay_comp.py:39",
+             launches=leaf_launches["delay_comp"],
+             max_abs_err=ou_err["delay_comp"],
+             **{k: v for k, v in ou_t["delay_comp"].items()
+                if k != "shape"}),
     ]
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on the path")

@@ -1,6 +1,7 @@
-"""Model config dataclasses for the PyTorch port: a copy of the JAX package's
-``ModelConfig``/``MoEConfig`` (`repro/configs/base.py`), kept here so the port
-imports nothing of the JAX package. No torch import at module scope.
+"""Config dataclasses for the PyTorch port: copies of the JAX package's
+``ModelConfig``/``MoEConfig``/``CoCoDCConfig`` (`repro/configs/base.py`),
+kept here so the port imports nothing of the JAX package. No torch import at
+module scope.
 """
 from __future__ import annotations
 
@@ -116,3 +117,83 @@ class ModelConfig:
             prefix_dim=min(self.prefix_dim, 64) if self.prefix_dim else 0,
             rwkv_head_dim=min(self.rwkv_head_dim, 32),
         )
+
+
+@dataclass(frozen=True)
+class CoCoDCConfig:
+    """Protocol hyperparameters (paper §IV defaults)."""
+    num_workers: int = 4           # M
+    local_steps: int = 100         # H
+    num_fragments: int = 4         # K
+    overlap_depth: int = 5         # tau
+    mixing_alpha: float = 0.5      # Streaming DiLoCo blending (Eq. 3)
+    comp_lambda: float = 0.5       # delay compensation strength (Eq. 7)
+    net_utilization: float = 0.4   # gamma (Eq. 9)
+    eq4_sign: float = 1.0          # +1 = self-consistent form; -1 = literal Eq. (4)
+    outer_lr: float = 0.7
+    outer_momentum: float = 0.9    # Nesterov (DiLoCo defaults)
+    strided_fragments: bool = True # Streaming DiLoCo strided layer->fragment pattern
+    # fragmentation strategy override: "" derives from strided_fragments
+    # ("strided"/"contiguous"); "skewed" builds size-skewed fragments
+    # (geometric byte shares) so per-fragment WAN costs differ enough for
+    # Algorithm-2 link pricing to flip selections
+    fragment_strategy: str = ""
+    # WAN payload dtype for the pseudo-gradient all-reduce. bf16 halves the
+    # cross-region bytes (beyond-paper optimization, §Perf iteration 4);
+    # outer-optimizer accumulation stays f32 either way.
+    sync_dtype: str = "float32"
+    # top-k magnitude sparsification of pseudo-gradients before the WAN
+    # all-reduce (beyond-paper): 1.0 = dense. Accounted bytes scale by
+    # 2*frac (values + indices).
+    sync_topk_frac: float = 1.0
+    # Algorithm-2 link-aware pricing (beyond-paper): rank fragments by
+    # change-rate per WAN-second (R_p / T_s,p) instead of raw R_p, so cheaper
+    # fragments win ties on heterogeneous topologies. Off = literal Eq. 12.
+    link_pricing: bool = False
+    # Routed communication plans (beyond-paper): "static" keeps the fixed
+    # ring/hierarchical cost formulas; "routed" plans every collective over the CURRENT link state — deterministic multi-hop
+    # min-cost routes, re-planned at each LinkDynamics edge — and refreshes
+    # the Algorithm-2 cost vector from the active plan.
+    routing: str = "static"
+    # With routing="routed": while the declared hub's links are out,
+    # deterministically re-elect the next-best-connected region as hub
+    # (restored on recovery) and drop fully dark regions from the collective
+    # instead of stalling it.
+    hub_failover: bool = False
+    # Re-derive Eq. 9's target sync count N (and Eq. 10's h) once per outer
+    # round from the MEASURED durations of recent transfers, so the cocodc
+    # initiation cadence tracks the network the run actually sees.
+    adaptive_resync: bool = False
+    # Wire-compression codec for the pseudo-gradient payload (beyond-paper,
+    # Streaming-DiLoCo-style compressed outer deltas): "none" keeps the
+    # f32/sync_dtype wire format bitwise; "int8"/"int4" quantize each delta
+    # per `codec_block`-element block (absmax scaling, kernels/delta_codec)
+    # before it crosses the WAN. The codec subsumes sync_dtype accounting —
+    # whatever dtype the payload was in, the wire carries codes + scales.
+    wire_codec: str = "none"
+    # quantization granularity: one f32 absmax scale ships per `codec_block`
+    # consecutive elements of each leaf (wire overhead 4/codec_block B/elem)
+    codec_block: int = 256
+    # error feedback: keep the per-element quantization residual locally and
+    # fold it into the same elements' next initiation, driving the cumulative
+    # quantization bias to ~0 over repeated syncs (EF-SGD)
+    codec_error_feedback: bool = True
+    # WAN channel scheduler (beyond-paper traffic plane). "serial" keeps the
+    # fixed `concurrent_collectives` channel queue;
+    # "fairshare" drops the queue entirely: every in-flight collective shares
+    # link capacity via max-min water-filling (core/network.FairShareSim), so
+    # a transfer's completion depends on who shares its bottleneck links and
+    # Eq. 9's measured durations include real contention.
+    channel_scheduler: str = "serial"
+    # With routing="routed": split every logical link's payload across up to
+    # k edge-disjoint min-cost paths (inverse-cost byte shares; completion =
+    # slowest subflow). 1 = single-path (bitwise-pinned arithmetic).
+    multipath_k: int = 1
+    # Fused outer-update plane: route every protocol transition through the
+    # flat fragment plane (core/flatplane.py) + kernels/outer_update — one
+    # kernel launch per fragment per stage instead of one per leaf per
+    # stage, and flat (rows, LANES) in-flight/residual buffers instead of
+    # full-model trees. Off keeps the per-leaf path. Flat-plane semantics:
+    # top-k sparsification and codec blocks span the fragment's concatenated
+    # leaves rather than respecting leaf boundaries.
+    fused_updates: bool = False

@@ -11,6 +11,16 @@ Kernels:
   flash_decode — one-token GQA attention over the slotted KV cache
                  (CUDA C++, ``csrc/flash_decode.cu``)
   rms_norm     — fused RMSNorm (Triton)
+  outer_update — fused outer Nesterov step (`nesterov_2d`) and fused
+                 delivery (`deliver_2d`: Eq. 3 blend or Algorithm-1
+                 compensation, offline-worker mask) over the flat fragment
+                 plane (CUDA C++, ``csrc/outer_update.cu``)
+  delay_comp   — per-leaf Algorithm-1 delay compensation (CUDA C++,
+                 ``csrc/delay_comp.cu``)
+
+None of the kernels has a backward: an "auto" wrapper raises when grad mode
+is on and an input requires a gradient (`check_no_grad`), so a training
+forward can never go through a kernel and silently cut the gradient.
 
 CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
 shared library per source under ``build/kernels/`` at the repo root (listed
@@ -40,7 +50,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # launches its kernel and nowhere else, so a run can show that its main path
 # went through the kernels (the port's counterpart of the JAX engine's
 # trace counts)
-LAUNCHES: Dict[str, int] = {"flash_decode": 0, "rms_norm": 0}
+LAUNCHES: Dict[str, int] = {"flash_decode": 0, "rms_norm": 0,
+                             "nesterov_2d": 0, "deliver_2d": 0,
+                             "delay_comp": 0}
 
 
 def count_launch(name: str) -> None:
@@ -54,6 +66,17 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel that has no
+    backward (grad mode on and an input requires grad)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: its kernel would cut the gradient. "
+            f"Call it with impl='ref' (the differentiable plain version) "
+            f"on a training path, or under torch.no_grad()")
 
 
 def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:

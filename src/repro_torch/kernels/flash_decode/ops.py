@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import check_no_grad
 from repro_torch.kernels.flash_decode.flash_decode import flash_decode_cuda
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
@@ -19,9 +20,12 @@ def flash_decode(q, k_cache, v_cache, kv_positions, q_position, *,
     """q: (B, H, hd); caches: (B, C, KV, hd); kv_positions: (C,) or (B, C)
     int32 (-1 = empty); q_position: () or (B,) int32. Returns (B, H, hd).
     `impl`: "auto" = the kernel on CUDA, the plain version on CPU; "ref" =
-    the plain version on either."""
+    the plain version on either. The kernel has no backward, so "auto"
+    raises if an input needs a gradient (on any device)."""
     if impl not in ("auto", "ref"):
         raise ValueError(f"unknown impl {impl!r}; options: auto|ref")
+    if impl == "auto":
+        check_no_grad("flash_decode", q, k_cache, v_cache)
     B, C = q.shape[0], k_cache.shape[1]
     pos = torch.as_tensor(kv_positions, dtype=torch.int32, device=q.device)
     if pos.dim() == 1:

@@ -25,9 +25,9 @@ from repro_torch.models import api
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.weights import params_from_jax
 
-FUSED_TODO = ("fused-mode checkpoints (flat fragment plane) need "
-              "core/fragments.py and core/flatplane.py, which are not ported "
-              "yet (ROADMAP.md, Queue A: 'fused-checkpoint loading')")
+FUSED_TODO = ("fused-mode checkpoints (flat fragment plane) are not loaded "
+              "by the serving path yet (ROADMAP.md, Queue A: "
+              "'fused-checkpoint loading')")
 
 
 def load_params(cfg, ckpt, device=None, seed: int = 0):

@@ -1,10 +1,12 @@
 """Model API of the port: dispatch by cfg.family (counterpart of
-`repro/models/api.py`). The serving slice ports the dense family; the other
-families raise until their ROADMAP.md item lands."""
+`repro/models/api.py`). The dense family is ported (training and serving);
+the other families raise until their ROADMAP.md item lands."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import ShapeDtype, tree_map
 from repro_torch.models import transformer
+from repro_torch.models.layers import torch_dtype
 
 _FAMILY_MOD = {"dense": transformer}
 
@@ -29,6 +31,22 @@ def family_module(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, gen, device=None):
     return family_module(cfg).init_params(cfg, gen, device)
+
+
+def param_specs(cfg: ModelConfig):
+    """Abstract params (`ShapeDtype` leaves in cfg.param_dtype): the port's
+    `jax.eval_shape(init_params)`."""
+    dtype = torch_dtype(cfg.param_dtype)
+    return tree_map(lambda s: ShapeDtype(tuple(s), dtype),
+                    family_module(cfg).param_shapes(cfg))
+
+
+def forward(cfg: ModelConfig, params, batch, **kw):
+    return family_module(cfg).forward(cfg, params, batch, **kw)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, **kw):
+    return family_module(cfg).loss_fn(cfg, params, batch, **kw)
 
 
 def prepare_params(cfg: ModelConfig, params):

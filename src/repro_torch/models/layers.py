@@ -1,5 +1,6 @@
 """Common model primitives of the port (counterpart of `repro/models/layers.py`):
-RMSNorm, RoPE, SwiGLU, GQA attention, q/k/v projections, init helpers.
+RMSNorm, RoPE, SwiGLU, GQA attention, q/k/v projections, init helpers,
+chunked cross-entropy.
 
 Params are plain dicts of tensors in the JAX package's layout: layer params
 stacked along a leading layer axis, projections stored as ``x @ W``.
@@ -148,3 +149,34 @@ def attn_out(o, lp, cfg: ModelConfig):
     if cfg.attn_bias:
         y = y + lp["bo"]
     return y
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy (never materializes the full (B,S,V) logits)
+# ---------------------------------------------------------------------------
+
+
+def chunked_cross_entropy(h, lm_head, labels, *, chunk: int = 512):
+    """h: (B, S, D) final hidden states; lm_head: (D, V); labels: (B, S).
+
+    Mean token NLL over sequence chunks of `chunk` (then the remainder), as
+    the JAX package's scan does: f32 logits ``h.float() @ lm_head.float()``
+    for one chunk at a time, so peak memory is O(B * chunk * V)."""
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+    w = lm_head.float()
+
+    def chunk_nll(hc, lc):
+        logits = hc.float() @ w
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        return lse - gold                                         # (B, c)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + chunk_nll(h[:, sl], labels[:, sl]).sum()
+    if S - n * chunk:
+        total = total + chunk_nll(h[:, n * chunk:], labels[:, n * chunk:]).sum()
+    return total / (B * S)

@@ -1,6 +1,13 @@
-"""Decoder-only transformer of the port, dense family: the serving path of
-`repro/models/transformer.py` (params, slot-plane cache, slotted decode step,
-chunked slotted prefill).
+"""Decoder-only transformer of the port, dense family: the training and
+serving paths of `repro/models/transformer.py` (params, `forward`/`loss_fn`,
+slot-plane cache, slotted decode step, chunked slotted prefill).
+
+The training forward runs the plain attention (`gqa_attention`, as the JAX
+trainer's ``attn_impl="ref"``) and the plain RMSNorm (``impl="ref"``, the
+JAX package's jnp norm): the norm kernel has no backward, and its wrapper
+refuses inputs that need a gradient. It keeps every layer's activations
+(the JAX package remats the layer scan, a memory choice; paper_150m at
+batch 8 x 256 tokens fits without it).
 
 The JAX package scans over stacked layer params under jit; here a Python
 loop walks the same stacked tensors eagerly. The serving functions update
@@ -16,7 +23,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.models.layers import (attn_out, attn_qkv,
-                                       cast_params_for_compute, dense_init,
+                                       cast_params_for_compute,
+                                       chunked_cross_entropy, dense_init,
                                        embed_init, gqa_attention, rms_norm,
                                        swiglu, torch_dtype)
 
@@ -115,6 +123,41 @@ def _ffn(cfg: ModelConfig, x, lp, impl: str):
     h = rms_norm(x, lp["ln2"], cfg.rms_eps, impl=impl)
     mlp = lp["mlp"]
     return x + swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# forward (train / eval)
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """Master params (bf16 compute casts them, differentiably) and a batch
+    {tokens (B, S)} -> final hidden states h (B, S, D) in the compute
+    dtype."""
+    _check_dense(cfg)
+    cp = cast_params_for_compute(cfg, params)
+    tokens = batch["tokens"].long()
+    x = cp["embed"][tokens]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    for l in range(cfg.n_layers):
+        lp = _layer(cp, l)
+        h = rms_norm(x, lp["ln1"], cfg.rms_eps, impl="ref")
+        q, k, v = attn_qkv(h, lp["attn"], cfg, positions, impl="ref")
+        o = gqa_attention(q, k, v, causal=True, window=cfg.attn_window,
+                          q_positions=positions, kv_positions=positions)
+        x = x + attn_out(o, lp["attn"], cfg)
+        x = _ffn(cfg, x, lp, "ref")
+    return rms_norm(x, cp["final_norm"], cfg.rms_eps, impl="ref")
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, xent_chunk: int = 512):
+    """Mean token NLL of `batch` {tokens, labels}; the head is the f32
+    master weight, as in the JAX package. Returns (loss, metrics)."""
+    h = forward(cfg, params, batch)
+    nll = chunked_cross_entropy(h, lm_head_weight(cfg, params),
+                                batch["labels"], chunk=xent_chunk)
+    return nll, {"nll": nll, "ppl": torch.exp(nll)}
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,8 @@ of request rid is drawn by Gumbel-max from a torch.Generator seeded with
 folds threefry keys; those bits cannot be reproduced here.)
 
 There is no jit and so nothing to retrace; in place of the JAX engine's trace
-counts, `kernel_launches()` reports each kernel wrapper's launch count.
+counts, `kernel_launches()` reports the launch count of each kernel of the
+serving path.
 """
 from __future__ import annotations
 
@@ -41,6 +42,9 @@ from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
 from repro_torch.serve import cache as cache_lib
+
+# the kernels a serving tick launches (`kernel_launches` reports these)
+SERVING_KERNELS = ("flash_decode", "rms_norm")
 
 CACHE_KEYS = ("k", "v", "kv_pos", "pos")
 
@@ -178,8 +182,10 @@ class ServeEngine:
 
     @staticmethod
     def kernel_launches() -> Dict[str, int]:
-        """Launches of each kernel since `kernels.reset_launch_counts()`."""
-        return kernels.launch_counts()
+        """Launches of each kernel of the serving path since
+        `kernels.reset_launch_counts()`."""
+        counts = kernels.launch_counts()
+        return {k: counts[k] for k in SERVING_KERNELS}
 
     # ------------------------------------------------------------- sampling
 

@@ -7,7 +7,9 @@ imports no JAX, so it also runs where only PyTorch is installed:
 Tolerances (`assert_close`, shared with test_torch_kernels.py): f32 at
 rtol = atol = 1e-5 (reduction order). bf16 at one bf16 ulp of each element
 (|a - b| <= 2^-7 |ref|: a last-bit rounding flip), plus 1e-5 of the tensor's
-magnitude for f32 reduction-order slack before the rounding.
+magnitude for f32 reduction-order slack before the rounding. The
+outer-update and delay-compensation kernels (elementwise, no reduction) at
+rtol 1e-5, atol 1e-6, like the JAX package's kernel-vs-oracle pin.
 """
 from __future__ import annotations
 
@@ -20,6 +22,12 @@ from repro_torch.kernels.flash_decode.ops import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
 from repro_torch.kernels.rms_norm.ops import rms_norm  # noqa: E402
 from repro_torch.kernels.rms_norm.ref import rms_norm_ref  # noqa: E402
+from repro_torch.kernels.delay_comp.ops import delay_comp_array  # noqa: E402
+from repro_torch.kernels.delay_comp.ref import delay_comp_ref  # noqa: E402
+from repro_torch.kernels.outer_update.ops import (fused_deliver,  # noqa: E402
+                                                  outer_nesterov)
+from repro_torch.kernels.outer_update.ref import (deliver_ref,  # noqa: E402
+                                                  nesterov_ref)
 
 BF16_ULP = 2.0 ** -7
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -63,6 +71,36 @@ def ragged_positions(B, C):
     return np.stack(rows[:B]).astype(np.int32), np.array(qpos[:B], np.int32)
 
 
+def outer_case(rows, m, seed):
+    """Flat-plane operands at parameter-like magnitudes: theta ~ 0.02,
+    momentum/delta ~ 1e-3, worker planes within 1e-3 of theta."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, s):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+    theta = r(rows, 1024, s=0.02)
+    return {"theta": theta, "mom": r(rows, 1024, s=1e-3),
+            "delta": r(rows, 1024, s=1e-3),
+            "g": theta + r(rows, 1024, s=1e-3),
+            "local": theta[None] + r(m, rows, 1024, s=1e-3),
+            "snap": theta[None] + r(m, rows, 1024, s=1e-3)}
+
+
+def assert_plane_close(got, want):
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's CPU work: the test workers share
+    the cores, and PyTorch's OpenMP threads spin-wait, so several
+    many-threaded workers slow each other down several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -97,3 +135,77 @@ def test_flash_decode_kernel_matches_plain_on_card(cuda, G, hd, C, window,
     assert_close(got, flash_decode_ref(q, k, v, pos, qpos, window=window),
                  dtype)
     assert not got[3].any()                    # the empty slot gives 0
+
+
+# paper_150m's K=4 strided fragment rows (0 and 2) at M=4, and ragged ones
+PLANE_ROWS = [44741, 20742, 37, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", PLANE_ROWS)
+def test_nesterov_kernel_matches_plain_on_card(cuda, rows):
+    c = {k: torch.from_numpy(v).to(cuda)
+         for k, v in outer_case(rows, 1, seed=rows).items()}
+    got = outer_nesterov(c["theta"], c["mom"], c["delta"], lr=0.7, mu=0.9)
+    torch.cuda.synchronize()
+    want = nesterov_ref(c["theta"], c["mom"], c["delta"], lr=0.7, mu=0.9)
+    assert_plane_close(got[0], want[0])
+    assert_plane_close(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["blend", "compensate"])
+@pytest.mark.parametrize("rows", PLANE_ROWS)
+def test_deliver_kernel_matches_plain_on_card(cuda, rows, mode):
+    c = {k: torch.from_numpy(v).to(cuda)
+         for k, v in outer_case(rows, 4, seed=rows + 1).items()}
+    avail = torch.tensor([True, False, True, True], device=cuda)
+    kw = ({"alpha": 0.5} if mode == "blend" else
+          {"tau": torch.tensor(8.0, device=cuda), "lam": 0.5, "H": 24.0,
+           "sign": 1.0})
+    snap = c["snap"] if mode == "compensate" else None
+    if snap is not None and rows % 2:
+        # a row slice of a full-model plane, as the engine hands it
+        full = torch.zeros(4, rows + 9, 1024, device=cuda)
+        full[:, 5:5 + rows] = snap
+        snap = full[:, 5:5 + rows]
+    got = fused_deliver(c["local"], snap, c["g"], avail, mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert_plane_close(got, deliver_ref(c["local"], snap, c["g"], avail,
+                                        mode=mode, **kw))
+    assert torch.equal(got[1], c["local"][1])       # the offline worker
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,bcast", [((4, 3, 768, 2048), True),
+                                         ((4, 3, 768), True),
+                                         ((4, 3, 97), True),
+                                         ((4, 5, 33), False),
+                                         ((4, 768), False)])
+def test_delay_comp_kernel_matches_plain_on_card(cuda, shape, bcast):
+    gen = torch.Generator(cuda).manual_seed(len(shape))
+    tp = torch.randn(shape, generator=gen, device=cuda) * 0.02
+    tl = tp + torch.randn(shape, generator=gen, device=cuda) * 1e-3
+    base = tp[:1] if bcast else tp
+    tg = base + torch.randn(base.shape, generator=gen, device=cuda) * 1e-3
+    kw = dict(tau=torch.tensor(5.0, device=cuda), lam=0.5, H=24.0, sign=1.0)
+    got = delay_comp_array(tl, tp, tg, **kw)
+    torch.cuda.synchronize()
+    assert_plane_close(got, delay_comp_ref(tl, tp, tg, **kw))
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_gradients_on_card(cuda):
+    """No kernel has a backward: on CUDA tensors that need a gradient the
+    wrappers raise instead of silently detaching."""
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rms_norm(x, torch.ones(64, device=cuda))
+    p = torch.zeros(2, 1024, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        outer_nesterov(p, p.detach(), p.detach(), lr=1.0, mu=0.5)
+    with pytest.raises(RuntimeError, match="no backward"):
+        delay_comp_array(p, p.detach(), p.detach(), tau=1.0, lam=0.5, H=1.0)
+    # the plain version keeps the graph
+    y = rms_norm(x, torch.ones(64, device=cuda), impl="ref")
+    assert y.grad_fn is not None
