@@ -21,7 +21,9 @@ Phases, in order; any failure raises and exits non-zero before the last line:
   8. the outer-update kernels (`nesterov_2d`, `deliver_2d` blend and
      compensate with one worker offline) and `delay_comp` (with and without
      the broadcast global leaf) against their plain versions at paper_150m's
-     fragment shapes (M=4) and a small ragged one, with times;
+     fragment shapes (M=4) and a small ragged one, with times; compensate
+     and `delay_comp` also on operands where Algorithm 1's Taylor term
+     exceeds the tolerance by over 1e3 (checked), so the comparison sees it;
   9. training at full width: `repro_torch.launch.train` on paper_150m
      (cocodc, streaming and diloco, all `--fused-updates`), step time,
      tokens/s, peak memory, eval NLL, stats, and exact launch counts;
@@ -370,6 +372,23 @@ def plane_err(got, want):
     return err.max().item()
 
 
+# Algorithm 1's scalars at which, with operands O(1) apart, the Taylor term
+# tau * lam * gr^2 * (g - s) / H is O(0.1-1) and dominates the tolerance;
+# at parameter-like magnitudes it is ~1e-11 and no comparison can see it
+COMP_KW = dict(lam=2.0, H=3.0, sign=-1.0)      # with tau = 2 on the device
+
+
+def term_ratio(full, without):
+    """Median over elements of Algorithm 1's Taylor term (`full` less the
+    same call at lam=0) over the outer-update tolerance; checked above 1e3,
+    so a kernel that drops or mis-scales the term fails `plane_err`."""
+    full, without = full.float(), without.float()
+    ratio = ((full - without).abs()
+             / (1e-6 + 1e-5 * full.abs())).median().item()
+    check(ratio > 1e3, f"compensation term too small to check: {ratio}")
+    return ratio
+
+
 def paper_fragment_rows():
     """paper_150m's K=4 strided fragment row counts (shapes only)."""
     from repro_torch.configs import get_config
@@ -451,26 +470,50 @@ def outer_update_phase(dev, timer):
                                                   mode="blend", alpha=0.5)),
             "library_ms": timer(lambda: torch.lerp(local, g[None], 0.5)),
             "bound_ms": b, "bound_by": by}
+    # compensate where the Taylor term dominates: operands O(1) apart
+    ckw = dict(tau=torch.tensor(2.0, device=dev), **COMP_KW)
+    ratios = []
+    for R in (rows[2], 37):
+        theta = rnd(R, 1024, scale=0.02)
+        g = theta + rnd(R, 1024)
+        local, snap = theta[None] + rnd(M, R, 1024), theta[None] + rnd(M, R,
+                                                                      1024)
+        avail = torch.tensor([True, True, False, True], device=dev)
+        got = fused_deliver(local, snap, g, avail, mode="compensate", **ckw)
+        torch.cuda.synchronize()
+        want = deliver_ref(local, snap, g, avail, mode="compensate", **ckw)
+        errs["deliver_2d"] = max(errs["deliver_2d"], plane_err(got, want))
+        ratios.append(term_ratio(want[avail], deliver_ref(
+            local, snap, g, avail, mode="compensate",
+            **{**ckw, "lam": 0.0})[avail]))
+        check(torch.equal(got[2], local[2]), "offline worker changed")
+        del theta, g, local, snap, got, want
     # delay_comp at the per-leaf engine's shapes: fragment 0's largest leaf
-    # (global leaf broadcast from (1, ...)), a norm leaf, a ragged leaf
+    # (global leaf broadcast from (1, ...)), a norm leaf, a ragged leaf;
+    # at parameter-like magnitudes (`dkw`) and where the term dominates
     biggest = max(frag.flat.chunks(0), key=lambda c: c.size)
     leaf_cases = [(f"fragment 0 {biggest.path} broadcast",
                    (M,) + biggest.shape, True, True),
                   (f"fragment 0 {biggest.path}", (M,) + biggest.shape, False,
                    False),
                   ("ln rows (3, 768) broadcast", (M, 3, 768), True, False),
-                  ("ragged (3, 97) broadcast", (M, 3, 97), True, False),
+                  ("ragged (5, 36) broadcast", (M, 5, 36), True, False),
                   ("ragged (5, 33)", (M, 5, 33), False, False)]
     dkw = dict(tau=torch.tensor(8.0, device=dev), lam=0.5, H=24.0, sign=1.0)
     for name, shape, bcast, timed in leaf_cases:
+        gshape = (1,) + shape[1:] if bcast else shape
         tp = rnd(*shape, scale=0.02)
-        tl = tp + rnd(*shape, scale=1e-3)
-        tg = (tp[:1] if bcast else tp) + rnd(*((1,) + shape[1:] if bcast
-                                               else shape), scale=1e-3)
-        got = delay_comp_array(tl, tp, tg, **dkw)
-        torch.cuda.synchronize()
-        want = delay_comp_ref(tl, tp, tg, **dkw)
-        errs["delay_comp"] = max(errs["delay_comp"], plane_err(got, want))
+        base = tp[:1] if bcast else tp
+        for kw_, spread in ((dkw, 1e-3), (ckw, 1.0)):
+            tl = tp + rnd(*shape, scale=spread)
+            tg = base + rnd(*gshape, scale=spread)
+            got = delay_comp_array(tl, tp, tg, **kw_)
+            torch.cuda.synchronize()
+            want = delay_comp_ref(tl, tp, tg, **kw_)
+            errs["delay_comp"] = max(errs["delay_comp"], plane_err(got, want))
+        ratios.append(term_ratio(want, delay_comp_ref(
+            tl, tp, tg, **{**ckw, "lam": 0.0})))
+        del got, want
         if not timed:
             continue
         n, ng = tl.numel(), tg.numel()
@@ -480,10 +523,19 @@ def outer_update_phase(dev, timer):
             "plain_ms": timer(lambda: delay_comp_ref(tl, tp, tg, **dkw)),
             "bound_ms": b, "bound_by": by, "library_ms": None,
             "shape": list(shape)}
+    try:
+        odd = rnd(M, 3, 97)
+        delay_comp_array(odd, odd, odd[:1], **dkw)
+        check(False, "delay_comp took a leaf of 3 * 97 elements")
+    except ValueError:
+        pass
     log(f"outer_update / delay_comp: kernel == plain at paper_150m fragment "
         f"rows {rows[0]} and {rows[2]} (M=4, one worker offline; strided "
         f"snapshot at fragment 2 and 37 rows), 37 rows, "
-        f"and leaves {[c[0] for c in leaf_cases]}; max abs err {errs}")
+        f"and leaves {[c[0] for c in leaf_cases]}; compensate and delay_comp "
+        f"again with operands O(1) apart, {COMP_KW} tau 2: Taylor term over "
+        f"tolerance, median {min(ratios):.3g}x at least; "
+        f"max abs err {errs}")
     for name, r in times.items():
         log(f"  time f32 {name}: " + json.dumps(r))
     return errs, times

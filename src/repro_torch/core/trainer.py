@@ -8,9 +8,10 @@ runs each one's forward and backward (on the worker's slice of the stack),
 and one AdamW update covers the whole stack. The host loop walks PROTOCOL
 EVENTS as the JAX segment loop does: the steps between two events run one
 after the other (there is no compile to amortise, so no scan), quiet steps
-only advance the simulated clock, and the engine acts at the event step —
-the same trajectory as the per-step loop, which the JAX package pins
-bitwise to its segment loop.
+only advance the simulated clock, and the engine acts at the event step.
+`loop="per_step"` (and `train_one_step`) runs the same loop with segments
+of one step, so the engine's hook sees every step — the same trajectory,
+as the JAX package pins its two loops bitwise.
 
 Initial params come from a seeded `torch.Generator`, or from `params=`
 (numpy or torch leaves, e.g. a JAX-package init through
@@ -33,7 +34,7 @@ from repro_torch.core.network import NetworkModel, Topology, paper_network
 from repro_torch.core.protocol import NETWORK_TODO, ProtocolEngine
 from repro_torch.core.tree import leaves_with_path, tree_map
 from repro_torch.data.pipeline import (MarkovCorpus, make_worker_streams,
-                                       stacked_batch, stacked_segment)
+                                       stacked_segment)
 from repro_torch.kernels import resolve_device
 from repro_torch.models import api
 from repro_torch.optim import adamw_init, adamw_update, warmup_cosine
@@ -55,7 +56,8 @@ class TrainerConfig:
     # both run the engine's transitions eagerly here (no jit in the port)
     engine_impl: str = "jit"
     # "segment" = event-driven host loop (the engine acts at event steps
-    # only); "per_step" = the engine's hook after every step
+    # only); "per_step" = the same loop in one-step segments (the engine's
+    # hook after every step)
     loop: str = "segment"
     # longest run of steps between two host-loop boundaries
     max_segment: int = 64
@@ -67,7 +69,9 @@ class CrossRegionTrainer:
                  network: Optional["NetworkModel | Topology"] = None,
                  dynamics: Optional[str] = None, dynamics_seed: int = 0,
                  spec: Optional[Any] = None, *, device=None, params=None,
-                 fused_impl: str = "auto"):
+                 **engine_kw):
+        """`engine_kw` (`dc_impl`, `fused_impl`) passes to the
+        `ProtocolEngine`."""
         if dynamics:
             raise NotImplementedError(NETWORK_TODO)
         self.device = resolve_device(device)
@@ -101,7 +105,7 @@ class CrossRegionTrainer:
         self.engine = ProtocolEngine(tcfg.method, ccfg, self.fragmenter,
                                      network, self.params_stack,
                                      engine_impl=tcfg.engine_impl,
-                                     fused_impl=fused_impl)
+                                     **engine_kw)
 
         self.streams = make_worker_streams(M, model_cfg.vocab, seed=tcfg.seed,
                                            noniid_frac=tcfg.noniid_frac)
@@ -150,15 +154,8 @@ class CrossRegionTrainer:
                 batch.items()}
 
     def train_one_step(self) -> float:
-        """Per-step path: one inner step, then the engine's hook."""
-        t = self.step
-        b = self._to_device(stacked_batch(self.streams, t,
-                                          self.tcfg.local_batch,
-                                          self.tcfg.seq_len))
-        losses = self._inner_step(b["tokens"], b["labels"], self.lr(t))
-        self.params_stack = self.engine.on_step_end(t, self.params_stack)
-        self.step += 1
-        return float(losses.mean())
+        """One inner step, then the engine's hook: a one-step segment."""
+        return self._run_segment(self.step, 1)
 
     def _run_segment(self, t0: int, n: int) -> float:
         """Steps [t0, t0+n): only the last can be a protocol event; the
@@ -180,7 +177,10 @@ class CrossRegionTrainer:
 
     def _segment_end(self, t: int, target: int, eval_every: int) -> int:
         """Last step (inclusive) of the segment starting at t: the earliest
-        of the next protocol event, the next eval boundary, and the end."""
+        of the next protocol event, the next eval boundary, and the end
+        (`t` itself under `loop="per_step"`)."""
+        if self.tcfg.loop == "per_step":
+            return t
         end = min(target - 1, t + self.tcfg.max_segment - 1)
         ne = self.engine.next_event_step(t)
         if ne is not None:
@@ -225,12 +225,9 @@ class CrossRegionTrainer:
         target = steps if steps is not None else self.tcfg.total_steps
         started = time.perf_counter()
         while self.step < target:
-            if self.tcfg.loop == "per_step":
-                train_loss = self.train_one_step()
-            else:
-                t0 = self.step
-                end = self._segment_end(t0, target, eval_every)
-                train_loss = self._run_segment(t0, end - t0 + 1)
+            t0 = self.step
+            end = self._segment_end(t0, target, eval_every)
+            train_loss = self._run_segment(t0, end - t0 + 1)
             if self.step % eval_every == 0 or self.step == target:
                 self._record_eval(train_loss, log)
         self.run_seconds += time.perf_counter() - started

@@ -11,9 +11,10 @@
 // What bounds it on the card: device memory. It reads tl and tp (the
 // worker-stacked local leaf and its initiation snapshot), the global leaf,
 // and writes out: 16 B and ~10 flops an element, 0.6 flop/B. The design
-// answers that with one pass: a grid-stride loop of 16-byte (float4) loads
-// when every operand allows it (sizes a multiple of 4 and 16-byte aligned;
-// otherwise one float a thread), intermediates in registers. The TPU wrapper
+// answers that with one pass: a grid-stride loop of 16-byte (float4) loads,
+// intermediates in registers. Every leaf of the ported models holds a
+// multiple of 4 elements; the launcher refuses any other and hands only
+// 16-byte aligned operands. The TPU wrapper
 // padded every leaf to (rows, 1024) and materialised the broadcast of the
 // (1, ...) global leaf against the (M, ...) stack; here the kernel takes the
 // leaf as it lies and reads the global leaf at i % ng (ng = its element
@@ -61,18 +62,6 @@ __global__ void delay_comp_vec4(const float4* tl, const float4* tp,
   }
 }
 
-__global__ void delay_comp_scalar(const float* tl, const float* tp,
-                                  const float* tg, const float* scalars,
-                                  float* out, int64_t n, int64_t ng) {
-  const float tau = scalars[0], lam = scalars[1], h = scalars[2],
-              sign = scalars[3];
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    out[i] = comp1(tl[i], tp[i], tg[i % ng], tau, lam, h, sign);
-  }
-}
-
 int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   if (b > kMaxBlocks) b = kMaxBlocks;
@@ -81,21 +70,15 @@ int blocks_for(int64_t n) {
 
 }  // namespace
 
-// tl, tp, out: n contiguous f32; tg: ng contiguous f32 (ng divides n).
-// vec4: nonzero when n and ng are multiples of 4 and every pointer is
-// 16-byte aligned. Returns a cudaError_t.
+// tl, tp, out: n contiguous f32; tg: ng contiguous f32 (ng divides n);
+// n and ng multiples of 4, every pointer 16-byte aligned. Returns a
+// cudaError_t.
 extern "C" int delay_comp_launch(const float* tl, const float* tp,
                                  const float* tg, const float* scalars,
-                                 float* out, int64_t n, int64_t ng, int vec4,
+                                 float* out, int64_t n, int64_t ng,
                                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (vec4) {
-    delay_comp_vec4<<<blocks_for(n / 4), kThreads, 0, st>>>(
-        (const float4*)tl, (const float4*)tp, (const float4*)tg, scalars,
-        (float4*)out, n / 4, ng / 4);
-  } else {
-    delay_comp_scalar<<<blocks_for(n), kThreads, 0, st>>>(
-        tl, tp, tg, scalars, out, n, ng);
-  }
+  delay_comp_vec4<<<blocks_for(n / 4), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)tl, (const float4*)tp, (const float4*)tg, scalars,
+      (float4*)out, n / 4, ng / 4);
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,7 @@ from repro_torch.kernels import count_launch, load_library
 def _fn():
     fn = load_library("delay_comp").delay_comp_launch
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, ctypes.c_int, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -23,8 +23,9 @@ def _fn():
 def delay_comp_cuda(theta_tl, theta_tp, theta_g, scalars):
     """theta_tl, theta_tp: (M, ...) f32; theta_g: the same shape or with a
     leading 1 (read by broadcast, not materialised); scalars: (4,) f32
-    [tau, lam, H, sign]; all contiguous on one CUDA device. Returns the
-    compensated (M, ...) leaf."""
+    [tau, lam, H, sign]; all contiguous on one CUDA device, the leaf a
+    multiple of 4 elements (the kernel's float4 loads; every leaf of the
+    ported models is). Returns the compensated (M, ...) leaf."""
     if theta_tp.shape != theta_tl.shape:
         raise ValueError(f"theta_tl {tuple(theta_tl.shape)} and theta_tp "
                          f"{tuple(theta_tp.shape)} must match")
@@ -34,6 +35,9 @@ def delay_comp_cuda(theta_tl, theta_tp, theta_g, scalars):
         raise ValueError(f"theta_g {tuple(theta_g.shape)} must equal theta_tl "
                          f"{tuple(theta_tl.shape)} or broadcast from a "
                          f"leading 1")
+    if theta_g.numel() % 4:
+        raise ValueError(f"delay_comp takes leaves of a multiple of 4 "
+                         f"elements, got {tuple(theta_g.shape[1:])}")
     tensors = (theta_tl, theta_tp, theta_g, scalars)
     dev = theta_tl.device
     if any(t.device != dev or t.device.type != "cuda" for t in tensors):
@@ -44,15 +48,16 @@ def delay_comp_cuda(theta_tl, theta_tp, theta_g, scalars):
         raise ValueError("delay_comp takes contiguous tensors")
     if tuple(scalars.shape) != (4,):
         raise ValueError(f"scalars must be (4,), got {tuple(scalars.shape)}")
+    # float4 loads need 16-byte aligned operands; a fresh allocation is
+    # (a contiguous view at an odd offset is copied)
+    theta_tl, theta_tp, theta_g = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                   for t in (theta_tl, theta_tp, theta_g))
     out = torch.empty_like(theta_tl)
-    n, ng = theta_tl.numel(), theta_g.numel()
-    vec4 = int(n % 4 == 0 and ng % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (theta_tl, theta_tp, theta_g, out)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn()(theta_tl.data_ptr(), theta_tp.data_ptr(),
                     theta_g.data_ptr(), scalars.data_ptr(), out.data_ptr(),
-                    n, ng, vec4, stream)
+                    theta_tl.numel(), theta_g.numel(), stream)
     if err != 0:
         raise RuntimeError(f"delay_comp launch failed: CUDA error {err}")
     count_launch("delay_comp")

@@ -71,9 +71,11 @@ def ragged_positions(B, C):
     return np.stack(rows[:B]).astype(np.int32), np.array(qpos[:B], np.int32)
 
 
-def outer_case(rows, m, seed):
-    """Flat-plane operands at parameter-like magnitudes: theta ~ 0.02,
-    momentum/delta ~ 1e-3, worker planes within 1e-3 of theta."""
+def outer_case(rows, m, seed, spread=1e-3):
+    """Flat-plane operands: theta ~ 0.02, momentum/delta ~ 1e-3, the global
+    plane and the worker planes within `spread` of theta. The default is
+    parameter-like; `spread=1` makes Algorithm 1's Taylor term dominate
+    (`COMP_KW`)."""
     rng = np.random.default_rng(seed)
 
     def r(*shape, s):
@@ -81,13 +83,30 @@ def outer_case(rows, m, seed):
     theta = r(rows, 1024, s=0.02)
     return {"theta": theta, "mom": r(rows, 1024, s=1e-3),
             "delta": r(rows, 1024, s=1e-3),
-            "g": theta + r(rows, 1024, s=1e-3),
-            "local": theta[None] + r(m, rows, 1024, s=1e-3),
-            "snap": theta[None] + r(m, rows, 1024, s=1e-3)}
+            "g": theta + r(rows, 1024, s=spread),
+            "local": theta[None] + r(m, rows, 1024, s=spread),
+            "snap": theta[None] + r(m, rows, 1024, s=spread)}
 
 
 def assert_plane_close(got, want):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-6)
+
+
+# Algorithm 1's scalars at which, with operands O(1) apart (`spread=1`),
+# the Taylor term tau * lam * gr^2 * (g - s) / H is O(0.1-1): a short
+# overlap, a large lam, a small H, and sign -1. At parameter-like
+# magnitudes it is ~1e-11, far below any tolerance.
+COMP_KW = dict(tau=2.0, lam=2.0, H=3.0, sign=-1.0)
+
+
+def assert_term_dominates(full, without):
+    """The Taylor term (`full` less the same call at lam=0) exceeds the
+    kernel-vs-plain tolerance (atol 1e-6 + rtol 1e-5) by over three orders
+    of magnitude at the median element, so a kernel or plain version that
+    drops or mis-scales it fails the comparison."""
+    full, without = _f32(full), _f32(without)
+    ratio = np.abs(full - without) / (1e-6 + 1e-5 * np.abs(full))
+    assert np.median(ratio) > 1e3, np.median(ratio)
 
 
 @pytest.fixture(scope="module")
@@ -179,7 +198,7 @@ def test_deliver_kernel_matches_plain_on_card(cuda, rows, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,bcast", [((4, 3, 768, 2048), True),
                                          ((4, 3, 768), True),
-                                         ((4, 3, 97), True),
+                                         ((4, 5, 36), True),
                                          ((4, 5, 33), False),
                                          ((4, 768), False)])
 def test_delay_comp_kernel_matches_plain_on_card(cuda, shape, bcast):
@@ -192,6 +211,58 @@ def test_delay_comp_kernel_matches_plain_on_card(cuda, shape, bcast):
     got = delay_comp_array(tl, tp, tg, **kw)
     torch.cuda.synchronize()
     assert_plane_close(got, delay_comp_ref(tl, tp, tg, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", PLANE_ROWS)
+def test_deliver_compensation_term_kernel_matches_plain_on_card(cuda, rows):
+    c = {k: torch.from_numpy(v).to(cuda)
+         for k, v in outer_case(rows, 4, seed=rows + 2, spread=1.0).items()}
+    avail = torch.tensor([True, True, False, True], device=cuda)
+    kw = {**COMP_KW, "tau": torch.tensor(COMP_KW["tau"], device=cuda)}
+    args = (c["local"], c["snap"], c["g"], avail)
+    got = fused_deliver(*args, mode="compensate", **kw)
+    torch.cuda.synchronize()
+    want = deliver_ref(*args, mode="compensate", **kw)
+    assert_plane_close(got, want)
+    assert_term_dominates(want[avail], deliver_ref(
+        *args, mode="compensate", **{**kw, "lam": 0.0})[avail])
+    assert torch.equal(got[2], c["local"][2])       # the offline worker
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,bcast", [((4, 3, 768, 2048), True),
+                                         ((4, 5, 36), True),
+                                         ((4, 5, 33), False)])
+def test_delay_comp_compensation_term_kernel_matches_plain_on_card(
+        cuda, shape, bcast):
+    gen = torch.Generator(cuda).manual_seed(len(shape) + 1)
+    tp = torch.randn(shape, generator=gen, device=cuda) * 0.02
+    tl = tp + torch.randn(shape, generator=gen, device=cuda)
+    base = tp[:1] if bcast else tp
+    tg = base + torch.randn(base.shape, generator=gen, device=cuda)
+    kw = {**COMP_KW, "tau": torch.tensor(COMP_KW["tau"], device=cuda)}
+    got = delay_comp_array(tl, tp, tg, **kw)
+    torch.cuda.synchronize()
+    want = delay_comp_ref(tl, tp, tg, **kw)
+    assert_plane_close(got, want)
+    assert_term_dominates(want, delay_comp_ref(tl, tp, tg,
+                                               **{**kw, "lam": 0.0}))
+
+
+@pytest.mark.cuda
+def test_delay_comp_refuses_leaves_off_float4(cuda):
+    """The kernel loads float4; a leaf of 3 * 97 elements is refused, and a
+    contiguous view at an odd offset is copied, not misread."""
+    x = torch.zeros(4, 3, 97, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        delay_comp_array(x, x, x[:1], tau=1.0, lam=0.5, H=1.0)
+    flat = torch.randn(4 * 8 + 1, device=cuda)
+    tl = flat[1:].reshape(4, 8)                 # 4 bytes past an aligned start
+    tp, tg = torch.randn(4, 8, device=cuda), torch.randn(1, 8, device=cuda)
+    kw = dict(tau=2.0, lam=2.0, H=3.0)
+    assert_plane_close(delay_comp_array(tl, tp, tg, **kw),
+                       delay_comp_ref(tl, tp, tg, **kw))
 
 
 @pytest.mark.cuda

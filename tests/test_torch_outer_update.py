@@ -29,7 +29,8 @@ from repro_torch.kernels.outer_update import outer_update as ou_cuda  # noqa: E4
 from repro_torch.kernels.outer_update.outer_update import (deliver_cuda,  # noqa: E402
                                                            nesterov_cuda)
 from repro_torch.kernels.rms_norm.ops import rms_norm  # noqa: E402
-from test_torch_kernels_cuda import one_torch_thread, outer_case  # noqa: E402,F401
+from test_torch_kernels_cuda import (COMP_KW, assert_term_dominates,  # noqa: E402,F401
+                                     one_torch_thread, outer_case)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -110,6 +111,44 @@ def test_delay_comp_plain_matches_jax(shape, bcast):
     assert tree["b"] is None and torch.equal(tree["a"], got)
 
 
+@pytest.mark.parametrize("rows", [3, 300])
+def test_deliver_compensation_term_matches_jax(rows):
+    """Operands O(1) apart and COMP_KW's scalars, where Algorithm 1's Taylor
+    term dominates the tolerance; one worker offline."""
+    c = outer_case(rows, m=3, seed=11 + rows, spread=1.0)
+    avail = np.array([True, True, False])
+    args = [torch.from_numpy(c[k]) for k in ("local", "snap", "g")]
+    got = fused_deliver(*args, torch.from_numpy(avail), mode="compensate",
+                        **COMP_KW)
+    assert_term_dominates(got[:2], fused_deliver(
+        *args, torch.from_numpy(avail), mode="compensate",
+        **{**COMP_KW, "lam": 0.0})[:2])
+    jargs = [jnp.asarray(c[k]) for k in ("local", "snap", "g")]
+    jargs.append(jnp.asarray(avail))
+    _close(got, jax_deliver_ref(*jargs, mode="compensate", **COMP_KW))
+    _close(got, jax_deliver(*jargs, mode="compensate", impl="pallas",
+                            **COMP_KW))
+    assert torch.equal(got[2], args[0][2])
+
+
+@pytest.mark.parametrize("shape,bcast", [((4, 3, 96), True),
+                                         ((2, 5, 36), False)])
+def test_delay_comp_compensation_term_matches_jax(shape, bcast):
+    rng = np.random.default_rng(shape[-1])
+    tp = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+    tl = tp + rng.standard_normal(shape).astype(np.float32)
+    gshape = (1,) + shape[1:] if bcast else shape
+    tg = ((tp[:1] if bcast else tp)
+          + rng.standard_normal(gshape)).astype(np.float32)
+    t = tuple(map(torch.from_numpy, (tl, tp, tg)))
+    got = delay_comp_array(*t, **COMP_KW)
+    assert_term_dominates(got, delay_comp_array(*t, **{**COMP_KW,
+                                                       "lam": 0.0}))
+    j = tuple(map(jnp.asarray, (tl, tp, tg)))
+    _close(got, jax_dc_ref(*j, **COMP_KW))
+    _close(got, jax_dc_array(*j, impl="pallas", **COMP_KW))
+
+
 def test_launchers_refuse_cpu_tensors():
     x = torch.zeros(2, 1024)
     s2, s4, s5 = torch.zeros(2), torch.zeros(4), torch.zeros(5)
@@ -119,6 +158,9 @@ def test_launchers_refuse_cpu_tensors():
         deliver_cuda(x[None], None, x, torch.ones(1), s5, mode="blend")
     with pytest.raises(ValueError, match="CUDA"):
         delay_comp_cuda(x[None], x[None], x[None], s4)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        odd = torch.zeros(2, 3, 97)
+        delay_comp_cuda(odd, odd, odd[:1], s4)
     with pytest.raises(ValueError, match="rows"):
         ou_cuda.check_nesterov_operands(torch.zeros(2, 100), x, x)
     with pytest.raises(ValueError, match="snapshot"):

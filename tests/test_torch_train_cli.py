@@ -18,6 +18,7 @@ from repro.core import network as jax_net  # noqa: E402
 from repro.launch import train as jax_train  # noqa: E402
 from repro_torch.api import ExperimentSpec, build_experiment  # noqa: E402
 from repro_torch.core import network as net  # noqa: E402
+from repro_torch.core.tree import leaves_with_path  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from test_torch_train_e2e import (DISCRETE_PAYLOAD_RTOL, check_pair,  # noqa: E402
                                   run_pair)
@@ -137,3 +138,26 @@ def test_static4_extensions_on_asym4_match_jax():
     check_pair(jh, th, rtol=DISCRETE_PAYLOAD_RTOL)
     # bf16 halves the wire; top-k 0.5 ships values + indices: ratio 2
     assert th[-1]["n_syncs"] > 0 and th[-1]["compression_ratio"] == 2.0
+
+
+@pytest.mark.parametrize("method", ["cocodc", "streaming"])
+def test_per_step_loop_equals_segment_loop(method):
+    """`--loop per_step` runs the event-driven loop in one-step segments, so
+    the engine's hook sees every step; it gives the segment loop's history
+    (losses, evals, stats) and params exactly, and so do repeated
+    `train_one_step` calls."""
+    flags = [method if f == "streaming" else f for f in FLAGS]
+    flags += ["--steps", "12", "--H", "6", "--device", "cpu"]
+    seg = train.run(flags + ["--loop", "segment"])
+    per = train.run(flags + ["--loop", "per_step"])
+    assert seg.history[-1]["n_syncs"] > 0
+    assert per.history == seg.history
+    one = build_experiment(seg.spec, device="cpu")
+    for _ in range(12):
+        one.train_one_step()
+    assert one.engine.stats() == seg.engine.stats()
+    want = leaves_with_path(seg.params_stack)
+    for tr in (per, one):
+        got = leaves_with_path(tr.params_stack)
+        assert [p for p, _ in got] == [p for p, _ in want]
+        assert all(torch.equal(a, b) for (_, a), (_, b) in zip(got, want))
