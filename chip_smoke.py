@@ -31,9 +31,27 @@ Phases, in order; any failure raises and exits non-zero before the last line:
      the paper_150m params stack, with its exact `delay_comp` launch count,
      and the host time of a delivering step in both layouts;
  11. a torch.profiler trace of full-width training steps;
- 12. parity of a full-width f32 training run through the kernels with the
-     same run through their plain versions (identical stats, NLL within
-     1e-4 relative).
+ 12. the wire-codec kernels (`quantize_pack`, `dequantize_unpack`, int8 and
+     int4) against their plain versions, bitwise (`torch.equal` on codes,
+     scales and decoded values), on paper_150m's fragment-0 plane at block
+     256 and 130, an odd-row slice of it, ragged leaves, exact ties and a
+     zero block, with times at block 256;
+ 13. compressed training at full width: paper_150m cocodc
+     `--fused-updates --wire-codec int8`, paused at step 26 with `--ckpt`
+     (the checkpoint written to a temporary directory: its size, write
+     and read seconds, peak host memory), continued to 48; a fresh trainer
+     resumed from the file to 48 must give identical stats and history and
+     bitwise-equal params and engine planes; then streaming per-leaf
+     `--wire-codec int4` for 24 steps; codec launches equal to the
+     initiations (fused: one of each per initiation; per-leaf: one per
+     leaf of each initiated fragment);
+ 14. serving from that fused checkpoint: `repro_torch.launch.serve --arch
+     paper_150m --ckpt ...` at temperature 0.8, its params equal to the
+     trainer's theta_g at step 26, and the host cost of the sampler's
+     threefry Gumbel draw per token;
+ 15. parity of a full-width f32 training run with the int8 codec through
+     the kernels with the same run through their plain versions (identical
+     stats, NLL within 1e-4 relative).
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -41,13 +59,17 @@ Needs CUDA and the repo's `src/`; it imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import resource
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -714,20 +736,22 @@ def train_profile_phase():
 
 
 def train_parity_phase():
-    """A full-width f32 cocodc fused run through the kernels against the
-    same run through their plain versions (make_engine_fns(...,
-    fused_impl="ref")): identical stats, NLL within 1e-4 relative."""
+    """A full-width f32 cocodc fused run with the int8 wire codec through
+    the kernels against the same run through their plain versions
+    (make_engine_fns(..., kernel_impl="ref")): identical
+    stats, NLL within 1e-4 relative."""
     from repro_torch.api import build_experiment
     from repro_torch.launch import train
     args = train.make_parser().parse_args(
         PAPER_TRAIN_ARGS + ["--method", "cocodc", "--fused-updates",
-                            "--steps", "24", "--eval-every", "12"])
+                            "--wire-codec", "int8", "--steps", "24",
+                            "--eval-every", "12"])
     spec = train.spec_from_args(args).validate()
     spec = dataclasses.replace(spec, model=dataclasses.replace(
         spec.model, compute_dtype="float32"))
     hist = {}
     for impl in ("auto", "ref"):
-        tr = build_experiment(spec, device=DEVICE, fused_impl=impl)
+        tr = build_experiment(spec, device=DEVICE, kernel_impl=impl)
         hist[impl] = tr.run(eval_every=12)
         del tr
         torch.cuda.empty_cache()
@@ -739,11 +763,310 @@ def train_parity_phase():
               if k not in ("train_loss", "nll", "ppl")}
         check(sa == sb, f"stats differ at step {a['step']}: {sa} vs {sb}")
         worst = max(worst, abs(a["nll"] - b["nll"]) / abs(b["nll"]))
-    log(f"parity f32 full-width training (cocodc fused, 24 steps): kernel "
+    log(f"parity f32 full-width training (cocodc fused, int8 codec, 24 "
+        f"steps): kernel "
         f"path stats == plain path stats; eval NLL "
         f"{[r['nll'] for r in hist['auto']]} vs "
         f"{[r['nll'] for r in hist['ref']]}, max rel diff {worst:.3g}")
     check(worst <= 1e-4, f"f32 NLL differs by {worst} relative")
+
+
+# ---------------------------------------------------------------------------
+# wire codec: kernels, compressed training, checkpoint/resume, serving
+# ---------------------------------------------------------------------------
+
+
+CODEC_BITS = {"int8": 8, "int4": 4}
+INT8_ARGS = PAPER_TRAIN_ARGS + ["--method", "cocodc", "--fused-updates",
+                                "--wire-codec", "int8", "--steps", "48",
+                                "--eval-every", "24"]
+# int8 payloads cross the calibrated network in 3 steps (raw ones in ~8), so
+# at step 24 no transfer is in flight; at 26 the step-24 initiation is
+KILL = 26
+
+
+def tie_blocks(block, levels, dev):
+    """Blocks whose elements sit exactly on half-integer codes: absmax =
+    levels * 2^-6 makes the scale 2^-6 exactly (f32(levels) *
+    f32(1/levels) == 1), so x / scale = k + 0.5 with no rounding."""
+    e = 2.0 ** -6
+    k = torch.arange(block, dtype=torch.float64) % (2 * levels) - levels
+    t = ((k + 0.5) * e).float()
+    t[0] = levels * e
+    return torch.stack([t, -t, torch.zeros(block), t * 4]).to(dev)
+
+
+def codec_phase(dev, timer):
+    """Both codec kernels against their plain versions, bitwise, at the
+    main path's shapes and the edge cases; times at block 256 on paper_150m
+    fragment 0's plane (the fused engine's operand). Returns the largest
+    |kernel - plain| of each kernel over all cases (codes as integers,
+    scales, decoded values) and the times."""
+    from repro_torch.kernels.delta_codec.ops import decode_array, encode_array
+    _, rows = paper_fragment_rows()
+    gen = torch.Generator(dev).manual_seed(4)
+    plane = torch.randn(rows[0], 1024, generator=gen, device=dev) * 1e-3
+    plane[7, 256:512] = 0.0                     # block 29: all zero
+    leaf = torch.randn(3, 1000, 77, generator=gen, device=dev) * 1e-2
+    times = {}
+    err = {"quantize_pack": 0.0, "dequantize_unpack": 0.0}
+
+    def gap(a, b):
+        return (a.to(torch.float64) - b.to(torch.float64)).abs().max().item()
+
+    for codec, bits in CODEC_BITS.items():
+        levels = 127 if bits == 8 else 7
+        cases = [("fragment 0 plane", plane, 256),
+                 ("fragment 0 plane, block 130", plane, 130),
+                 ("odd-row slice [5:3006]", plane[5:3006], 256),
+                 ("ragged leaf (3, 1000, 77)", leaf, 256),
+                 ("ragged leaf (5, 33), block 130", leaf[0, :5, :33], 130),
+                 ("ties", tie_blocks(256, levels, dev), 256),
+                 ("ties, block 130", tie_blocks(130, levels, dev), 130)]
+        for name, x, block in cases:
+            kw = dict(codec=codec, block=block)
+            p, s = encode_array(x, **kw)
+            torch.cuda.synchronize()
+            pr, sr = encode_array(x, impl="ref", **kw)
+            err["quantize_pack"] = max(err["quantize_pack"], gap(p, pr),
+                                       gap(s, sr))
+            check(torch.equal(p, pr) and torch.equal(s, sr),
+                  f"{codec} encode != plain on {name}")
+            d = decode_array(p, s, x.shape, x.dtype, **kw)
+            torch.cuda.synchronize()
+            dr = decode_array(pr, sr, x.shape, x.dtype, impl="ref", **kw)
+            err["dequantize_unpack"] = max(err["dequantize_unpack"],
+                                           gap(d, dr))
+            check(torch.equal(d, dr), f"{codec} decode != plain on {name}")
+            if name == "fragment 0 plane":
+                check(s[29].item() == 0 and not d[7, 256:512].any(),
+                      "the zero block must give scale 0 and zeros")
+        n = plane.numel()
+        nblocks = n // 256
+        nbytes = 4 * n + n * bits // 8 + 4 * nblocks
+        p, s = encode_array(plane, codec=codec, block=256)
+        kw = dict(codec=codec, block=256)
+        enc_b, enc_by = bound_ms(nbytes, 5 * n, torch.float32)
+        dec_b, dec_by = bound_ms(nbytes, 2 * n, torch.float32)
+        times[codec] = {
+            "quantize_pack": {
+                "ms": timer(lambda: encode_array(plane, **kw)),
+                "plain_ms": timer(lambda: encode_array(plane, impl="ref",
+                                                       **kw)),
+                "bound_ms": enc_b, "bound_by": enc_by, "library_ms": None},
+            "dequantize_unpack": {
+                "ms": timer(lambda: decode_array(p, s, plane.shape,
+                                                 plane.dtype, **kw)),
+                "plain_ms": timer(lambda: decode_array(
+                    p, s, plane.shape, plane.dtype, impl="ref", **kw)),
+                "bound_ms": dec_b, "bound_by": dec_by, "library_ms": None}}
+    log(f"delta_codec: quantize_pack and dequantize_unpack == plain "
+        f"bitwise (codes, scales, decoded) in int8 and int4 on paper_150m "
+        f"fragment 0 ({rows[0]} x 1024) at blocks 256 and 130, an odd-row "
+        f"slice, ragged leaves, exact ties and a zero block")
+    for codec, t in times.items():
+        for name, r in t.items():
+            log(f"  time {codec} block 256 fragment 0 {name}: "
+                + json.dumps(r))
+    return err, times
+
+
+@contextlib.contextmanager
+def initiated_fragments():
+    """The fragment of every initiation the engines make inside the block
+    (the per-leaf codec launches one encode and one decode per leaf of the
+    initiated fragment)."""
+    from repro_torch.core.protocol import ProtocolEngine
+    seen, orig = [], ProtocolEngine._initiate
+
+    def spy(self, t, params_stack, p):
+        seen.append(p)
+        return orig(self, t, params_stack, p)
+
+    ProtocolEngine._initiate = spy
+    try:
+        yield seen
+    finally:
+        ProtocolEngine._initiate = orig
+
+
+def peak_host_gib():
+    """Peak resident host memory of this process so far (GiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def engines_equal(a, b):
+    from repro_torch.core.engine_state import EngineState
+    for f in dataclasses.fields(EngineState):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        check((x is None) == (y is None), f"engine field {f.name}")
+        if isinstance(x, torch.Tensor):
+            check(torch.equal(x, y), f"engine plane {f.name} differs")
+
+
+def trees_equal(a, b, what):
+    from repro_torch.core.tree import leaves_with_path
+    la, lb = leaves_with_path(a), leaves_with_path(b)
+    check([p for p, _ in la] == [p for p, _ in lb], f"{what}: leaves")
+    for (p, x), (_, y) in zip(la, lb):
+        check(torch.equal(x, y), f"{what}: {p} differs")
+
+
+def compressed_training_phase(ckpt_dir):
+    """paper_150m cocodc fused with the int8 codec through the CLI, paused
+    at step KILL with --ckpt (one save), continued to 48; a fresh trainer
+    resumed from the file to 48; then streaming per-leaf with int4. Returns
+    (codec launches of the two compressed runs, checkpoint path, theta_g at
+    step KILL)."""
+    from repro_torch import kernels
+    from repro_torch.api import build_experiment
+    from repro_torch.launch import train
+    ck = os.path.join(ckpt_dir, "paper_150m_int8.msgpack")
+    free = shutil.disk_usage(ckpt_dir).free
+    check(free > 16e9, f"{ckpt_dir} has {free / 1e9:.1f} GB free; the "
+          f"full-width checkpoint takes ~10.7 GB")
+    host0 = peak_host_gib()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = train.run(INT8_ARGS + ["--stop-at", str(KILL), "--ckpt", ck])
+    check(tr.step == KILL and tr.engine.pending,
+          f"the run must pause at step {KILL} with a transfer in flight")
+    theta_kill = tr.engine.theta_g
+    write_s, size = tr.ckpt_seconds, os.path.getsize(ck)
+    host_write = peak_host_gib()
+    tr.run(eval_every=24)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    s = tr.engine.stats()
+    steps, M, B, S = 48, 4, 8, 256
+    train_s = tr.run_seconds - tr.eval_seconds
+    nlls = [r["nll"] for r in tr.history]
+    log(f"train paper_150m cocodc --fused-updates --wire-codec int8: 48 "
+        f"steps in {wall:.3f} s wall ({tr.eval_seconds:.3f} s evals, "
+        f"{write_s:.3f} s checkpoint write): "
+        f"{train_s / steps * 1e3:.1f} ms/step, "
+        f"{steps * M * B * S / train_s:.0f} tokens/s (synchronised, build, "
+        f"evals and the checkpoint excluded); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; eval NLL "
+        f"{nlls}; bytes_sent {s['bytes_sent']:.0f}, wire_bytes_raw "
+        f"{s['wire_bytes_raw']:.0f}, compression ratio "
+        f"{s['compression_ratio']:.4f}")
+    log("  stats: " + json.dumps(s))
+    log(f"  launches: {launches}")
+    n_init = int(s["n_syncs"])
+    deliveries = n_init - len(tr.engine.pending)
+    check(launches["quantize_pack"] == launches["dequantize_unpack"]
+          == n_init > 0,
+          f"codec launches {launches['quantize_pack']}/"
+          f"{launches['dequantize_unpack']} != initiations {n_init}")
+    check(launches["nesterov_2d"] == launches["deliver_2d"] == deliveries,
+          "outer-update launches != deliveries")
+    check(abs(s["compression_ratio"] - 3.938) < 1e-3,
+          f"int8 compression ratio {s['compression_ratio']}")
+    check(all(np.isfinite(nlls)), "non-finite eval NLL")
+    codec_launches = {k: launches[k] for k in ("quantize_pack",
+                                               "dequantize_unpack")}
+
+    # a fresh trainer resumes from the file (the CLI's --resume path)
+    args = train.make_parser().parse_args(INT8_ARGS)
+    tr2 = build_experiment(train.spec_from_args(args).validate(),
+                           device=DEVICE)
+    t0 = time.perf_counter()
+    train.resume(tr2, ck)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    host_read = peak_host_gib()
+    check(tr2.step == KILL and len(tr2.engine.pending) > 0,
+          f"resumed trainer must stand at step {KILL} with a transfer in "
+          f"flight")
+    tr2.run(eval_every=24)
+    check(tr2.history == tr.history, "resumed history differs")
+    check(tr2.engine.stats() == s, "resumed stats differ")
+    engines_equal(tr2.engine.state, tr.engine.state)
+    trees_equal(tr2.params_stack, tr.params_stack, "params stack")
+    trees_equal(tr2.opt_state.mu, tr.opt_state.mu, "AdamW mu")
+    log(f"checkpoint/resume paper_150m int8 at step {KILL}: file "
+        f"{size / 1e9:.3f} GB, write {write_s:.2f} s, read + restore "
+        f"{read_s:.2f} s; peak host memory {host0:.2f} GiB before, "
+        f"{host_write:.2f} after the write, {host_read:.2f} after the read; "
+        f"resumed to 48: history, stats, params, moments and engine planes "
+        f"identical (eval NLL {[r['nll'] for r in tr2.history]})")
+    del tr, tr2
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    with initiated_fragments() as seen:
+        tr = train.run(PAPER_TRAIN_ARGS + ["--method", "streaming",
+                                           "--wire-codec", "int4", "--steps",
+                                           "24", "--eval-every", "12"])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    s = tr.engine.stats()
+    want = sum(len(tr.fragmenter.leaves_in(p)) for p in seen)
+    train_s = tr.run_seconds - tr.eval_seconds
+    log(f"train paper_150m streaming per-leaf --wire-codec int4: 24 steps, "
+        f"{train_s / 24 * 1e3:.1f} ms/step; compression ratio "
+        f"{s['compression_ratio']:.4f}; initiated fragments {seen}; codec "
+        f"launches {launches['quantize_pack']}/"
+        f"{launches['dequantize_unpack']} (= leaves of the initiated "
+        f"fragments, {want})")
+    check(len(seen) == int(s["n_syncs"]) > 0, "initiations != n_syncs")
+    check(launches["quantize_pack"] == launches["dequantize_unpack"] == want,
+          "per-leaf codec launches != leaves of the initiated fragments")
+    check(abs(s["compression_ratio"] - 7.758) < 2e-3,
+          f"int4 compression ratio {s['compression_ratio']}")
+    for k in codec_launches:
+        codec_launches[k] += launches[k]
+    del tr
+    torch.cuda.empty_cache()
+    return codec_launches, ck, theta_kill
+
+
+def serve_checkpoint_phase(ck, theta_kill):
+    """`repro_torch.launch.serve` on the fused training checkpoint, sampled
+    at temperature 0.8; its params are the trainer's theta_g at step KILL.
+    A functional check of the checkpoint load, with no serving speed (the
+    serving speeds are the qwen3 phases'). Also the host cost of the
+    sampler's Gumbel draw per token, at the real vocabulary sizes."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves_with_path
+    from repro_torch.data import prng
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    kernels.reset_launch_counts()
+    eng = serve.run(["--arch", "paper_150m", "--ckpt", ck, "--requests", "6",
+                     "--slots", "4", "--prompt-len", "64", "--gen-len", "16",
+                     "--prefill-chunk", "32", "--cache-len", "128",
+                     "--temperature", "0.8", "--seed", "0",
+                     "--device", DEVICE])
+    s = eng.stats()
+    cfg = get_config("paper_150m")
+    want = api.prepare_params(cfg, theta_kill)
+    got = dict(leaves_with_path(eng.params))
+    for path, w in leaves_with_path(want):
+        check(torch.equal(got[path], w), f"served param {path} != theta_g")
+    check(s["completed"] == 6, "not every request completed")
+    for rec in eng.completed:
+        check(all(0 <= t < cfg.vocab for t in rec.tokens), "token id range")
+    gumbel_ms = {}
+    for vocab in (cfg.vocab, 151936):
+        keys = np.stack([prng.fold_in(prng.prng_key(0), i) for i in range(8)])
+        prng.gumbel(keys[:1], (vocab,))
+        t1 = time.perf_counter()
+        for i in range(8):
+            prng.gumbel(keys[i:i + 1], (vocab,))
+        gumbel_ms[vocab] = (time.perf_counter() - t1) / 8 * 1e3
+    log(f"serve paper_150m from the fused int8 checkpoint, temperature 0.8 "
+        f"(functional check, no speed): {s['completed']}/6 requests, "
+        f"{s['total_tokens']} tokens; params == trainer theta_g at step "
+        f"{KILL}; launches {eng.kernel_launches()}")
+    log(f"  sampler host cost (threefry Gumbel draw in numpy, one token): "
+        + ", ".join(f"vocab {v}: {ms:.2f} ms" for v, ms in gumbel_ms.items()))
+    return gumbel_ms
 
 
 # ---------------------------------------------------------------------------
@@ -789,6 +1112,18 @@ def main() -> int:
     train_launches = training_phases()
     leaf_launches, _ = per_leaf_phase(dev)
     train_profile_phase()
+
+    t0 = time.perf_counter()
+    codec_err, codec_t = codec_phase(dev, timer)
+    log(f"codec kernel checks and timings in {time.perf_counter() - t0:.1f} s")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        codec_launches, ck, theta_kill = compressed_training_phase(ckpt_dir)
+        serve_checkpoint_phase(ck, theta_kill)
+        del theta_kill
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
     train_parity_phase()
 
     entries = [
@@ -824,6 +1159,15 @@ def main() -> int:
              **{k: v for k, v in ou_t["delay_comp"].items()
                 if k != "shape"}),
     ]
+    for name, line in (("quantize_pack", 70), ("dequantize_unpack", 93)):
+        entries.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/delta_codec.cu",
+            replaces=f"src/repro/kernels/delta_codec/delta_codec.py:{line}",
+            launches=codec_launches[name], max_abs_err=codec_err[name],
+            **codec_t["int8"][name],
+            int4={k: codec_t["int4"][name][k] for k in
+                  ("ms", "plain_ms", "bound_ms", "library_ms")}))
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on the path")
     log(f"card: {card}")

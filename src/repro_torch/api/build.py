@@ -3,8 +3,8 @@ factory (counterpart of `repro/api/build.py`): named scenario or the
 calibrated symmetric default, optional bandwidth calibration
 (`NetworkSpec.bw_scale="auto"`).
 
-The slice covers the static network with the serial channel scheduler and
-no wire codec; a spec that asks for anything else raises
+The port covers the static network with the serial channel scheduler, with
+or without the wire codec; a spec that asks for anything else raises
 NotImplementedError naming its ROADMAP.md item (`check_scope`), never a
 silent fallback.
 """
@@ -15,23 +15,20 @@ import functools
 from typing import Optional
 
 from repro_torch.api.spec import ExperimentSpec
-from repro_torch.core.engine_state import CODEC_TODO
 from repro_torch.core.network import (MESH_TODO, Topology, calibrate_bw_scale,
                                       make_scenario)
 from repro_torch.core.protocol import NETWORK_TODO
 
 
 def check_scope(spec: ExperimentSpec) -> None:
-    """Raise NotImplementedError for the spec fields this slice does not
-    run yet."""
-    n, ext = spec.network, spec.method.extensions
+    """Raise NotImplementedError for the spec fields the port does not run
+    yet."""
+    n = spec.network
     if n.mesh is not None:
         raise NotImplementedError(MESH_TODO)
     if (n.dynamics or n.routing != "static" or n.hub_failover
             or n.channel_scheduler != "serial" or n.multipath_k > 1):
         raise NotImplementedError(NETWORK_TODO)
-    if ext.wire_codec != "none":
-        raise NotImplementedError(CODEC_TODO)
 
 
 def resolve_model(spec: ExperimentSpec):
@@ -91,10 +88,10 @@ def build_network(spec: ExperimentSpec) -> Optional[Topology]:
 
 def build_experiment(spec: ExperimentSpec, *, device=None, params=None,
                      **trainer_kw):
-    """Validate `spec`, check it is in this slice's scope, and construct the
+    """Validate `spec`, check it is in the port's scope, and construct the
     trainer it describes on `device` (CUDA unless named). `params` (numpy or
     torch leaves) overrides the seeded init; `trainer_kw` passes engine
-    options (`dc_impl`, `fused_impl`) through."""
+    options (`dc_impl`, `kernel_impl`) through."""
     from repro_torch.core.trainer import CrossRegionTrainer
     spec.validate()
     check_scope(spec)

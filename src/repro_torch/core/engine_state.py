@@ -18,7 +18,9 @@ State layout (fixed capacity, no Python object queue):
   * `inflight_active/t_init`   — (K,) per-fragment in-flight bookkeeping
   * `delta_norm/last_sync/rate`— (K,) adaptive-transmission state (Eq. 11)
   * `worker_available`         — (M,) partial-participation mask
-Per-leaf mode keeps the first four as trees of the params' shapes; with
+  * `wire_residual`            — the wire codec's error-feedback residual,
+    ONE full-model f32 buffer (None unless a codec with EF is on)
+Per-leaf mode keeps the buffers as trees of the params' shapes; with
 `fused_updates` they are flat fragment planes (`frag.flat`).
 
 Transitions (built by `make_engine_fns`):
@@ -38,13 +40,11 @@ from repro_torch.core import outer_opt
 from repro_torch.core.fragments import Fragmenter
 from repro_torch.core.methods import get_method
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.kernels.delta_codec import ops as codec_ops
 from repro_torch.kernels.outer_update import ops as ou_ops
 
 SYNC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                "float16": torch.float16}
-
-CODEC_TODO = ("wire_codec != 'none' is not ported yet (ROADMAP.md, Queue A: "
-              "'wire codec in the engine', with the delta_codec kernels)")
 
 
 def tree_norm(a) -> torch.Tensor:
@@ -119,6 +119,10 @@ class EngineState:
     last_sync: torch.Tensor          # (K,) int32 — t_{p,b} of Eq. 11
     rate: torch.Tensor               # (K,) f32  — R_p of Eq. 11 (+inf = never)
     worker_available: torch.Tensor   # (M,) bool
+    # wire-codec error-feedback residual: one full-model f32 buffer
+    # (fragments are disjoint, so their residuals never collide); None
+    # unless an active codec has error feedback on
+    wire_residual: Any = None
 
 
 def init_state(method: str, ccfg: CoCoDCConfig, params_stack,
@@ -126,9 +130,8 @@ def init_state(method: str, ccfg: CoCoDCConfig, params_stack,
     """Initial state from the (identical-per-worker) params stack, on the
     stack's device. With `ccfg.fused_updates` every engine-owned buffer
     lives on the flat plane (`frag` is then required)."""
-    if ccfg.wire_codec != "none":
-        raise NotImplementedError(CODEC_TODO)
     K, M, H = ccfg.num_fragments, ccfg.num_workers, ccfg.local_steps
+    ef_active = ccfg.wire_codec != "none" and ccfg.codec_error_feedback
     dev = tree_leaves(params_stack)[0].device
     theta_g = tree_map(lambda a: a[0].clone(), params_stack)
     impl = get_method(method)
@@ -143,13 +146,16 @@ def init_state(method: str, ccfg: CoCoDCConfig, params_stack,
                           if impl.overlapped else None)
         inflight_snapshot = (frag.flat.full_zeros(M, device=dev)
                              if impl.keeps_snapshot else None)
+        wire_residual = frag.flat.full_zeros(device=dev) if ef_active else None
     else:
+        f32_zeros = lambda a: torch.zeros(  # noqa: E731
+            a.shape, dtype=torch.float32, device=dev)
         momentum = tree_map(torch.zeros_like, theta_g)
-        inflight_delta = (tree_map(
-            lambda a: torch.zeros(a.shape, dtype=torch.float32, device=dev),
-            theta_g) if impl.overlapped else None)
+        inflight_delta = (tree_map(f32_zeros, theta_g)
+                          if impl.overlapped else None)
         inflight_snapshot = (tree_map(torch.zeros_like, params_stack)
                              if impl.keeps_snapshot else None)
+        wire_residual = tree_map(f32_zeros, theta_g) if ef_active else None
     return EngineState(
         theta_g=theta_g,
         momentum=momentum,
@@ -161,7 +167,29 @@ def init_state(method: str, ccfg: CoCoDCConfig, params_stack,
         last_sync=torch.full((K,), -H, dtype=torch.int32, device=dev),
         rate=torch.full((K,), float("inf"), dtype=torch.float32, device=dev),
         worker_available=torch.ones((M,), dtype=torch.bool, device=dev),
+        wire_residual=wire_residual,
     )
+
+
+def state_to_dict(state: EngineState) -> dict:
+    """EngineState -> plain field dict (the checkpoint format of the JAX
+    package's `state_to_dict`)."""
+    return {f.name: getattr(state, f.name)
+            for f in dataclasses.fields(EngineState)}
+
+
+def state_from_dict(ref: EngineState, d: dict) -> EngineState:
+    """Rebuild an EngineState from `state_to_dict` output (tensors or the
+    numpy leaves of a loaded checkpoint), casting every leaf to the dtype,
+    shape and device of the matching leaf of `ref`, a live state from
+    `init_state`. Fields absent from `d` (`wire_residual` in a pre-codec
+    checkpoint restored into a codec engine) keep `ref`'s value: error
+    feedback restarts from a zero residual."""
+    from repro_torch.checkpoint.io import restore_like
+    return EngineState(**{
+        f.name: (restore_like(getattr(ref, f.name), d[f.name])
+                 if f.name in d else getattr(ref, f.name))
+        for f in dataclasses.fields(EngineState)})
 
 
 # ---------------------------------------------------------------------------
@@ -193,17 +221,32 @@ def _note_delivery(state: EngineState, t: int, p: int) -> None:
 
 def make_engine_fns(method: str, ccfg: CoCoDCConfig, frag: Fragmenter, *,
                     dc_impl: str = "ref",
-                    fused_impl: str = "auto") -> EngineFns:
+                    kernel_impl: str = "auto") -> EngineFns:
     """Build the transition functions. The method-specific pieces come from
     the registered `SyncMethod` strategy. `dc_impl` ("ref" | "kernel")
     picks the per-leaf delay compensation; with `ccfg.fused_updates` the
-    transitions go through the flat plane and kernels/outer_update, whose
-    impl policy is `fused_impl` ("auto" = the kernels for CUDA tensors,
-    "ref" = their plain versions)."""
-    if ccfg.wire_codec != "none":
-        raise NotImplementedError(CODEC_TODO)
+    transitions go through the flat plane and kernels/outer_update.
+    `kernel_impl` is the policy of those kernels and of the wire codec's
+    (kernels/delta_codec, both layouts): "auto" = the kernels for CUDA
+    tensors, "ref" = their plain versions.
+
+    With `ccfg.wire_codec` on, every outgoing delta goes through the codec
+    at initiation (and in the blocking round): the in-flight buffer holds
+    what the receiver reconstructs from the wire, so `deliver` reads the
+    post-wire payload and `delta_norm` is taken from it. With error
+    feedback, `d_in = delta + residual`, `delta = roundtrip(d_in)`,
+    `residual = d_in - delta`, the residual updated in place."""
     impl = get_method(method)
     lr, mu = ccfg.outer_lr, ccfg.outer_momentum
+    codec_on = ccfg.wire_codec != "none"
+
+    def roundtrip(d):
+        return codec_ops.codec_roundtrip_array(
+            d, codec=ccfg.wire_codec, block=ccfg.codec_block, impl=kernel_impl)
+
+    def tree_roundtrip(d):
+        return codec_ops.codec_roundtrip(
+            d, codec=ccfg.wire_codec, block=ccfg.codec_block, impl=kernel_impl)
 
     def initiate(state: EngineState, t, params_stack, p: int) -> EngineState:
         """Start fragment p's all-reduce at step t: snapshot the worker-local
@@ -213,6 +256,14 @@ def make_engine_fns(method: str, ccfg: CoCoDCConfig, frag: Fragmenter, *,
         delta_avg = pseudograd_mean(
             frag_stack, theta_g_frag, state.worker_available,
             sync_dtype=ccfg.sync_dtype, topk_frac=ccfg.sync_topk_frac)
+        if codec_on:
+            residual = state.wire_residual
+            d_in = (delta_avg if residual is None else
+                    tree_map(torch.add, delta_avg, frag.extract(residual, p)))
+            delta_avg = tree_roundtrip(d_in)
+            if residual is not None:
+                frag.insert(residual, p,
+                            tree_map(torch.sub, d_in, delta_avg))
         if impl.keeps_snapshot:
             frag.insert(state.inflight_snapshot, p, frag_stack,
                         worker_axis=True)
@@ -252,6 +303,15 @@ def make_engine_fns(method: str, ccfg: CoCoDCConfig, frag: Fragmenter, *,
         delta_avg = pseudograd_mean(
             params_stack, state.theta_g, state.worker_available,
             sync_dtype=ccfg.sync_dtype, topk_frac=ccfg.sync_topk_frac)
+        if codec_on:
+            residual = state.wire_residual
+            d_in = (delta_avg if residual is None else
+                    tree_map(torch.add, delta_avg, residual))
+            delta_avg = tree_roundtrip(d_in)
+            if residual is not None:
+                for r, a, b in zip(tree_leaves(residual), tree_leaves(d_in),
+                                   tree_leaves(delta_avg)):
+                    torch.sub(a, b, out=r)
         new_g, new_mom = outer_opt.nesterov_update(
             state.theta_g, state.momentum, delta_avg, lr=lr, mu=mu)
         avail = state.worker_available
@@ -272,12 +332,20 @@ def make_engine_fns(method: str, ccfg: CoCoDCConfig, frag: Fragmenter, *,
         def initiate(state: EngineState, t, params_stack, p: int) -> EngineState:  # noqa: F811
             """Fused initiation: theta is already flat (a static row slice);
             pack the worker stack's fragment once, one flat pseudo-gradient
-            mean, park via static row slices."""
+            mean, one codec round trip over the fragment's plane (one
+            `quantize_pack` and one `dequantize_unpack` launch), park via
+            static row slices."""
             r0, r1 = flat.row_span(p)
             stack_flat = flat.pack_stack(params_stack, p)
             delta = flat_pseudograd_mean(
                 stack_flat, state.theta_g[r0:r1], state.worker_available,
                 sync_dtype=ccfg.sync_dtype, topk_frac=ccfg.sync_topk_frac)
+            if codec_on:
+                residual = state.wire_residual
+                d_in = delta if residual is None else delta + residual[r0:r1]
+                delta = roundtrip(d_in)
+                if residual is not None:
+                    torch.sub(d_in, delta, out=residual[r0:r1])
             if impl.keeps_snapshot:
                 state.inflight_snapshot[:, r0:r1] = stack_flat
             state.inflight_delta[r0:r1] = delta
@@ -293,13 +361,13 @@ def make_engine_fns(method: str, ccfg: CoCoDCConfig, frag: Fragmenter, *,
             r0, r1 = flat.row_span(p)
             new_g, new_mom = ou_ops.outer_nesterov(
                 state.theta_g[r0:r1], state.momentum[r0:r1],
-                state.inflight_delta[r0:r1], lr=lr, mu=mu, impl=fused_impl)
+                state.inflight_delta[r0:r1], lr=lr, mu=mu, impl=kernel_impl)
             snap = (state.inflight_snapshot[:, r0:r1]
                     if impl.keeps_snapshot else None)
             new_local = ou_ops.fused_deliver(
                 flat.pack_stack(params_stack, p), snap, new_g,
                 state.worker_available, mode=impl.fused_delivery,
-                impl=fused_impl,
+                impl=kernel_impl,
                 **impl.fused_delivery_kwargs(
                     ccfg, t=t, t_init=state.inflight_t_init[p]))
             state.theta_g[r0:r1] = new_g
@@ -316,12 +384,18 @@ def make_engine_fns(method: str, ccfg: CoCoDCConfig, frag: Fragmenter, *,
             delta = flat_pseudograd_mean(
                 stack_flat, state.theta_g, state.worker_available,
                 sync_dtype=ccfg.sync_dtype, topk_frac=ccfg.sync_topk_frac)
+            if codec_on:
+                residual = state.wire_residual
+                d_in = delta if residual is None else delta + residual
+                delta = roundtrip(d_in)
+                if residual is not None:
+                    torch.sub(d_in, delta, out=residual)
             new_g, new_mom = ou_ops.outer_nesterov(
                 state.theta_g, state.momentum, delta, lr=lr, mu=mu,
-                impl=fused_impl)
+                impl=kernel_impl)
             new_local = ou_ops.fused_deliver(
                 stack_flat, None, new_g, state.worker_available,
-                mode="blend", alpha=1.0, impl=fused_impl)
+                mode="blend", alpha=1.0, impl=kernel_impl)
             state.theta_g, state.momentum = new_g, new_mom
             flat.unpack_full(params_stack, new_local, worker_axis=True)
             return state, params_stack

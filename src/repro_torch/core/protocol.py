@@ -25,9 +25,13 @@ A fragment initiated at step t completes at its simulated transfer finish
 time: queued behind earlier transfers when every WAN channel is busy, and
 paced by the slowest link of the collective.
 
+The host scheduler checkpoints in the JAX package's format (schema v6,
+`scheduler_state` / `restore_scheduler`): the fields of features the port
+lacks are written with their static-network values.
+
 Out of scope here (each raises NotImplementedError naming its ROADMAP.md
-item): routed plans, hub failover, the fair-share scheduler, multipath,
-the wire codec, and checkpointing of the scheduler.
+item): routed plans, hub failover, the fair-share scheduler, multipath and
+link dynamics — also when a checkpoint needs them.
 """
 from __future__ import annotations
 
@@ -45,10 +49,67 @@ from repro_torch.core.fragments import Fragmenter
 from repro_torch.core.methods import get_method
 from repro_torch.core.network import Topology, as_topology
 from repro_torch.core.tree import ShapeDtype, tree_map
+from repro_torch.kernels.delta_codec import ops as codec_ops
 
 NETWORK_TODO = ("link dynamics, routing, fair-share and meshes are not "
                 "ported yet (ROADMAP.md, Queue A: 'link dynamics, routing, "
                 "fair-share and meshes')")
+
+# Host-scheduler checkpoint schema of the JAX package (its
+# `protocol.SCHEDULER_SCHEMA_VERSION`); `upgrade_scheduler_state` reads every
+# earlier version:
+#   v1 — pending/seq/channel clocks/traffic matrices only
+#   v2 — + dynamics clocks (dyn_seq, stall_seconds, n_retries)
+#   v3 — + routing/resync blocks, 6-element pending rows (duration)
+#   v4 — + explicit schema_version stamp
+#   v5 — + wire_bytes_raw (uncompressed payload tally)
+#   v6 — + 8-element pending rows (wire bytes, transfer id), sojourn log,
+#          fair-share flow set, bytes in the resync window, multipath splits
+SCHEDULER_SCHEMA_VERSION = 6
+
+_ROUTING_DEFAULTS = {"plan_time": -1.0, "counted_time": -1.0, "plan_dark": [],
+                     "reroutes": 0, "hub_elections": 0}
+# N/h None = keep the engine-derived cadence (pre-routing checkpoints)
+_RESYNC_DEFAULTS = {"measured": [], "measured_bytes": [], "N": None,
+                    "h_cocodc": None}
+
+
+def upgrade_scheduler_state(st: Dict[str, object]) -> Dict[str, object]:
+    """Upgrade a serialized host-scheduler dict of any prior schema version
+    to the current one, filling in what the writing code could not have
+    known (the JAX package's upgrade rules, field for field)."""
+    st = dict(st)
+    st.setdefault("dyn_seq", 0)
+    st.setdefault("stall_seconds", 0.0)
+    st.setdefault("n_retries", 0)
+    # pending rows: + duration (v3), + wire bytes (0 = unknown) and
+    # transfer id (-1) (v6)
+    rows = []
+    for r in st["pending"]:
+        row = list(r)[:8] + [0.0] * (6 - len(r))
+        if len(row) < 7:
+            row.append(0)
+        if len(row) < 8:
+            row.append(-1)
+        rows.append(row)
+    st["pending"] = rows
+    routing = dict(st.get("routing") or {})
+    for k, v in _ROUTING_DEFAULTS.items():
+        routing.setdefault(k, v)
+    st["routing"] = routing
+    resync = dict(st.get("resync") or {})
+    for k, v in _RESYNC_DEFAULTS.items():
+        resync.setdefault(k, v)
+    if len(resync["measured_bytes"]) != len(resync["measured"]):
+        resync["measured_bytes"] = [0.0] * len(resync["measured"])
+    st["resync"] = resync
+    # pre-codec checkpoints resume with compression ratio 1
+    st.setdefault("wire_bytes_raw", st["bytes_sent"])
+    st.setdefault("multipath_splits", 0)
+    st.setdefault("transfer_log", [])
+    st.setdefault("fairshare", None)
+    st["schema_version"] = SCHEDULER_SCHEMA_VERSION
+    return st
 
 
 def _percentile(sorted_vals: List[float], q: float) -> float:
@@ -70,6 +131,7 @@ class PendingSync:
     seq: int               # initiation order (stable delivery tie-break)
     duration: float = 0.0  # transfer seconds, queueing excluded
     wire: int = 0          # wire bytes of this transfer
+    tid: int = -1          # transfer id (sojourn-log key)
 
 
 class ProtocolEngine:
@@ -78,7 +140,7 @@ class ProtocolEngine:
 
     def __init__(self, method: str, ccfg: CoCoDCConfig, fragmenter: Fragmenter,
                  network, params_stack, *, dc_impl: str = "ref",
-                 engine_impl: str = "jit", fused_impl: str = "auto"):
+                 engine_impl: str = "jit", kernel_impl: str = "auto"):
         self.method_impl = get_method(method)
         if engine_impl not in ("jit", "host"):
             raise ValueError(f"unknown engine_impl {engine_impl!r} "
@@ -97,8 +159,6 @@ class ProtocolEngine:
                 or ccfg.channel_scheduler != "serial"
                 or ccfg.multipath_k > 1):
             raise NotImplementedError(NETWORK_TODO)
-        if ccfg.wire_codec != "none":
-            raise NotImplementedError(es.CODEC_TODO)
         self.method = method
         self.cfg = ccfg
         self.frag = fragmenter
@@ -114,11 +174,15 @@ class ProtocolEngine:
         self.state = es.init_state(method, ccfg, params_stack,
                                    frag=fragmenter)
         self._fns = es.make_engine_fns(method, ccfg, fragmenter,
-                                       dc_impl=dc_impl, fused_impl=fused_impl)
+                                       dc_impl=dc_impl,
+                                       kernel_impl=kernel_impl)
 
-        # Eq. 9/10 scheduling interval
+        # Eq. 9/10 scheduling interval; with a wire codec the startup T_s
+        # sees the compressed payload (cheaper syncs -> more of them)
         mean_frag_bytes = self.frag.total_bytes / self.K
-        t_s = self.topology.t_s(int(mean_frag_bytes))
+        t_s = self.topology.t_s(self._wire_bytes(int(mean_frag_bytes))
+                                if ccfg.wire_codec != "none"
+                                else int(mean_frag_bytes))
         self._t_s_startup = t_s
         self.N = adaptive_lib.target_syncs(self.K, self.H, self.topology.t_c,
                                            t_s, ccfg.net_utilization)
@@ -166,11 +230,23 @@ class ProtocolEngine:
             return self._materialize(self.state.theta_g)
         return self.state.theta_g
 
+    @theta_g.setter
+    def theta_g(self, value):
+        if self.cfg.fused_updates:
+            value = self.frag.flat.pack_full(value)
+        self.state.theta_g = value
+
     @property
     def momentum(self):
         if self.cfg.fused_updates:
             return self._materialize(self.state.momentum)
         return self.state.momentum
+
+    @momentum.setter
+    def momentum(self, value):
+        if self.cfg.fused_updates:
+            value = self.frag.flat.pack_full(value)
+        self.state.momentum = value
 
     @property
     def adaptive(self) -> adaptive_lib.AdaptiveState:
@@ -185,10 +261,16 @@ class ProtocolEngine:
     # ------------------------------------------------------------------ utils
 
     def _wire_bytes(self, nbytes: int) -> int:
-        """Bytes that cross the WAN for an `nbytes` f32 fragment: sync_dtype
-        compression and top-k sparsification (values + indices)."""
+        """Bytes that cross the WAN for an `nbytes` f32 fragment: the wire
+        codec's codes + per-block scales (which subsume sync_dtype), or
+        sync_dtype compression; then top-k sparsification (values +
+        indices)."""
         itemsize = es.SYNC_DTYPES[self.cfg.sync_dtype].itemsize
-        if itemsize < 4:
+        if self.cfg.wire_codec != "none":
+            nbytes = codec_ops.wire_bytes(nbytes // 4,
+                                          codec=self.cfg.wire_codec,
+                                          block=self.cfg.codec_block)
+        elif itemsize < 4:
             nbytes = nbytes * itemsize // 4
         if self.cfg.sync_topk_frac < 1.0:
             nbytes = int(nbytes * min(1.0, 2 * self.cfg.sync_topk_frac))
@@ -227,12 +309,13 @@ class ProtocolEngine:
 
     def _initiate(self, t: int, params_stack, p: int):
         nbytes = self.frag.fragment_bytes(p)
+        tid = self.n_syncs              # _schedule_transfer's id, pre-bump
         finish, duration = self._schedule_transfer(nbytes)
         self.state = self._fns.initiate(self.state, t, params_stack, p)
         self.pending.append(PendingSync(
             frag=p, t_init=t, deliver_at=self._deliver_step_for(t, finish),
             finish_time=finish, seq=self._seq, duration=duration,
-            wire=self._wire_bytes(nbytes)))
+            wire=self._wire_bytes(nbytes), tid=tid))
         self._seq += 1
 
     def _select_cocodc(self, t: int, busy: set) -> int:
@@ -271,6 +354,92 @@ class ProtocolEngine:
             if self._resync is not None:
                 self._resync.observe(ev.duration, ev.wire)
         return params_stack
+
+    # ---------------------------------------------------------- checkpointing
+
+    def scheduler_state(self) -> Dict[str, object]:
+        """Host-side scheduler state (everything outside `EngineState`) in
+        the JAX package's schema v6: the in-flight schedule, channel clocks
+        and traffic accounting. The fields of features the port lacks carry
+        their static-network values (no dynamics clocks, no routed plan, no
+        fair-share flows). The simulated wall-clock lives in the trainer's
+        state, not here."""
+        return {
+            "schema_version": SCHEDULER_SCHEMA_VERSION,
+            "pending": [[ev.frag, ev.t_init, ev.deliver_at, ev.finish_time,
+                         ev.seq, ev.duration, ev.wire, ev.tid]
+                        for ev in self.pending],
+            "seq": self._seq,
+            "comm_seconds": self.comm_seconds,
+            "bytes_sent": self.bytes_sent,
+            "wire_bytes_raw": self.wire_bytes_raw,
+            "n_syncs": self.n_syncs,
+            "channel_free": [float(x) for x in self._channel_free],
+            "worker_available": [bool(x) for x in
+                                 self.state.worker_available.tolist()],
+            "link_bytes": self.link_bytes,
+            "link_seconds": self.link_seconds,
+            "dyn_seq": 0,
+            "stall_seconds": 0.0,
+            "n_retries": 0,
+            "routing": dict(_ROUTING_DEFAULTS),
+            "resync": {
+                "measured": ([] if self._resync is None
+                             else [float(x) for x in self._resync.measured]),
+                "measured_bytes": ([] if self._resync is None else
+                                   [float(x)
+                                    for x in self._resync.measured_bytes]),
+                "N": int(self.N),
+                "h_cocodc": int(self.h_cocodc),
+            },
+            "multipath_splits": 0,
+            "transfer_log": [[int(k), float(v)] for k, v
+                             in sorted(self._transfer_log.items())],
+            "fairshare": None,
+        }
+
+    def restore_scheduler(self, st: Dict[str, object]):
+        """Inverse of `scheduler_state` (EngineState is restored separately;
+        it also carries the availability mask). Takes any prior schema
+        version; a checkpoint of a run that used link dynamics, a routed
+        plan, fair-share flows or multipath splits raises
+        NotImplementedError (ROADMAP.md, Queue A item 3)."""
+        st = upgrade_scheduler_state(st)
+        routing = st["routing"]
+        if (int(st["dyn_seq"]) or float(st["stall_seconds"])
+                or int(st["n_retries"]) or st["fairshare"] is not None
+                or int(st["multipath_splits"])
+                or float(routing["plan_time"]) >= 0.0
+                or float(routing["counted_time"]) >= 0.0
+                or routing["plan_dark"] or int(routing["reroutes"])
+                or int(routing["hub_elections"])):
+            raise NotImplementedError(
+                "the checkpoint's run used link dynamics, routed plans, "
+                "fair-share flows or multipath: " + NETWORK_TODO)
+        self.pending = [PendingSync(frag=int(r[0]), t_init=int(r[1]),
+                                    deliver_at=int(r[2]),
+                                    finish_time=float(r[3]), seq=int(r[4]),
+                                    duration=float(r[5]), wire=int(r[6]),
+                                    tid=int(r[7]))
+                        for r in st["pending"]]
+        self._seq = int(st["seq"])
+        self.comm_seconds = float(st["comm_seconds"])
+        self.bytes_sent = int(st["bytes_sent"])
+        self.wire_bytes_raw = int(st["wire_bytes_raw"])
+        self.n_syncs = int(st["n_syncs"])
+        self._channel_free = [float(x) for x in st["channel_free"]]
+        self.link_bytes = np.asarray(st["link_bytes"], dtype=np.float64)
+        self.link_seconds = np.asarray(st["link_seconds"], dtype=np.float64)
+        resync = st["resync"]
+        if self._resync is not None:
+            self._resync.measured = [float(x) for x in resync["measured"]]
+            self._resync.measured_bytes = [float(x) for x
+                                           in resync["measured_bytes"]]
+        if resync["N"] is not None:
+            self.N = int(resync["N"])
+        if resync["h_cocodc"] is not None:
+            self.h_cocodc = int(resync["h_cocodc"])
+        self._transfer_log = {int(k): float(v) for k, v in st["transfer_log"]}
 
     # ---------------------------------------------------------------- stats
 

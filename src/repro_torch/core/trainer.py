@@ -16,8 +16,14 @@ as the JAX package pins its two loops bitwise.
 Initial params come from a seeded `torch.Generator`, or from `params=`
 (numpy or torch leaves, e.g. a JAX-package init through
 `weights.params_from_jax`) so both packages can start from the same
-weights. Checkpointing is not ported yet (ROADMAP.md, Queue A:
-'checkpoint writing and resume').
+weights.
+
+Checkpoint/resume: the full run state — `TrainerState` (params stack, inner
+AdamW state, EngineState, step/wall-clock/data cursor), the host scheduler
+and the eval history — round-trips atomically through `checkpoint/io` at any
+segment boundary, in the JAX package's format (`CKPT_FORMAT`, meta schema
+v5), so either package resumes the other's checkpoint; a resumed run replays
+the uninterrupted one exactly.
 """
 from __future__ import annotations
 
@@ -28,7 +34,9 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import load_pytree, restore_like, save_pytree
 from repro_torch.configs.base import CoCoDCConfig, ModelConfig
+from repro_torch.core import engine_state as es
 from repro_torch.core.fragments import make_fragmenter
 from repro_torch.core.network import NetworkModel, Topology, paper_network
 from repro_torch.core.protocol import NETWORK_TODO, ProtocolEngine
@@ -38,6 +46,7 @@ from repro_torch.data.pipeline import (MarkovCorpus, make_worker_streams,
 from repro_torch.kernels import resolve_device
 from repro_torch.models import api
 from repro_torch.optim import adamw_init, adamw_update, warmup_cosine
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.weights import params_from_jax, unflatten
 
 
@@ -63,6 +72,28 @@ class TrainerConfig:
     max_segment: int = 64
 
 
+@dataclasses.dataclass
+class TrainerState:
+    """Everything device-side a resumed run needs: worker-stacked params and
+    inner AdamW state, the protocol EngineState, and the run cursors. The
+    host scheduler state rides beside it in the checkpoint dict
+    (`CrossRegionTrainer.checkpoint_state`)."""
+    params_stack: Any
+    opt_state: Any
+    engine: es.EngineState
+    step: int
+    wall_clock: float
+    data_cursor: int    # == step (the data is a pure function of the step)
+
+
+CKPT_FORMAT = "trainer_state_v1"
+
+# Checkpoint-meta schema of the JAX package (`_upgrade_meta` reads every
+# earlier version): v2 + spec and spec_hash, v3 + wire-codec knobs, v4 +
+# traffic-plane knobs, v5 + fused_updates.
+META_SCHEMA_VERSION = 5
+
+
 class CrossRegionTrainer:
     def __init__(self, model_cfg: ModelConfig, ccfg: CoCoDCConfig,
                  tcfg: TrainerConfig,
@@ -70,7 +101,7 @@ class CrossRegionTrainer:
                  dynamics: Optional[str] = None, dynamics_seed: int = 0,
                  spec: Optional[Any] = None, *, device=None, params=None,
                  **engine_kw):
-        """`engine_kw` (`dc_impl`, `fused_impl`) passes to the
+        """`engine_kw` (`dc_impl`, `kernel_impl`) passes to the
         `ProtocolEngine`."""
         if dynamics:
             raise NotImplementedError(NETWORK_TODO)
@@ -119,6 +150,8 @@ class CrossRegionTrainer:
         # synchronised wall times
         self.run_seconds = 0.0
         self.eval_seconds = 0.0
+        # host seconds writing checkpoints (not counted in run_seconds)
+        self.ckpt_seconds = 0.0
 
     def lr(self, step) -> torch.Tensor:
         """Inner LR at `step` (f32 CPU tensor; a scalar or per-step array)."""
@@ -175,18 +208,20 @@ class CrossRegionTrainer:
         self.step = t0 + n
         return float(losses.mean())
 
-    def _segment_end(self, t: int, target: int, eval_every: int) -> int:
+    def _segment_end(self, t: int, target: int, eval_every: int,
+                     ckpt_every: int = 0) -> int:
         """Last step (inclusive) of the segment starting at t: the earliest
-        of the next protocol event, the next eval boundary, and the end
-        (`t` itself under `loop="per_step"`)."""
+        of the next protocol event, the next eval or checkpoint boundary,
+        and the end (`t` itself under `loop="per_step"`)."""
         if self.tcfg.loop == "per_step":
             return t
         end = min(target - 1, t + self.tcfg.max_segment - 1)
         ne = self.engine.next_event_step(t)
         if ne is not None:
             end = min(end, ne)
-        if eval_every:
-            end = min(end, (t // eval_every + 1) * eval_every - 1)
+        for every in (eval_every, ckpt_every):
+            if every:
+                end = min(end, (t // every + 1) * every - 1)
         return end
 
     # ------------------------------------------------------------------ eval
@@ -219,18 +254,26 @@ class CrossRegionTrainer:
             f"ppl {ev['ppl']:.2f} wall {self.engine.wall_clock:.0f}s")
 
     def run(self, steps: Optional[int] = None, eval_every: int = 50,
-            log: Callable[[str], None] = lambda s: None):
-        """Train to absolute step `steps` (default tcfg.total_steps),
-        recording an eval every `eval_every` steps and at the end."""
+            log: Callable[[str], None] = lambda s: None,
+            ckpt_path: Optional[str] = None, ckpt_every: int = 0):
+        """Train to absolute step `steps` (default tcfg.total_steps; a
+        resumed trainer continues from its restored cursor), recording an
+        eval every `eval_every` steps and at the end. With `ckpt_path` and
+        `ckpt_every`, checkpoints the full run state atomically at those
+        segment boundaries (time spent there counts in `ckpt_seconds`, not
+        in `run_seconds`)."""
         target = steps if steps is not None else self.tcfg.total_steps
-        started = time.perf_counter()
+        started, saved = time.perf_counter(), self.ckpt_seconds
         while self.step < target:
             t0 = self.step
-            end = self._segment_end(t0, target, eval_every)
+            end = self._segment_end(t0, target, eval_every, ckpt_every)
             train_loss = self._run_segment(t0, end - t0 + 1)
             if self.step % eval_every == 0 or self.step == target:
                 self._record_eval(train_loss, log)
-        self.run_seconds += time.perf_counter() - started
+            if ckpt_path and ckpt_every and self.step % ckpt_every == 0:
+                self.save_checkpoint(ckpt_path)
+        self.run_seconds += (time.perf_counter() - started
+                             - (self.ckpt_seconds - saved))
         return self.history
 
     def steps_to_ppl(self, target: float) -> Optional[int]:
@@ -239,3 +282,167 @@ class CrossRegionTrainer:
                 return rec["step"]
         return None
 
+    # ---------------------------------------------------------- checkpointing
+
+    def trainer_state(self) -> TrainerState:
+        return TrainerState(params_stack=self.params_stack,
+                            opt_state=self.opt_state, engine=self.engine.state,
+                            step=self.step,
+                            wall_clock=float(self.engine.wall_clock),
+                            data_cursor=self.step)
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """The full-run checkpoint payload of the JAX package: TrainerState
+        as plain field dicts, the host scheduler, the eval history and the
+        identity meta that resume validates. Leaves are the live tensors
+        (the writer copies each to the host as it reaches it)."""
+        ts = self.trainer_state()
+        meta = {"schema_version": META_SCHEMA_VERSION,
+                "arch": self.mcfg.name, **self._traj_meta()}
+        if self.spec is not None:
+            meta["spec"] = self.spec.to_dict()
+            meta["spec_hash"] = self.spec.spec_hash
+        return {
+            "format": CKPT_FORMAT,
+            "trainer_state": {
+                "params_stack": ts.params_stack,
+                "opt_state": {"mu": ts.opt_state.mu, "nu": ts.opt_state.nu,
+                              "count": ts.opt_state.count},
+                "engine": es.state_to_dict(ts.engine),
+                "step": ts.step,
+                "wall_clock": ts.wall_clock,
+                "data_cursor": ts.data_cursor,
+            },
+            "scheduler": self.engine.scheduler_state(),
+            "history": self.history,
+            "meta": meta,
+        }
+
+    def _traj_meta(self) -> Dict[str, Any]:
+        """Every config knob the trajectory is a function of (data streams,
+        LR schedule, protocol event schedule): saved in the checkpoint and
+        checked on resume, so a mismatched resume raises instead of
+        silently diverging."""
+        t, c = self.tcfg, self.ccfg
+        return {"method": t.method, "seed": t.seed,
+                "total_steps": t.total_steps,
+                "warmup_steps": t.warmup_steps, "inner_lr": t.inner_lr,
+                "weight_decay": t.weight_decay, "local_batch": t.local_batch,
+                "seq_len": t.seq_len, "noniid_frac": t.noniid_frac,
+                "num_workers": c.num_workers, "local_steps": c.local_steps,
+                "num_fragments": c.num_fragments,
+                "overlap_depth": c.overlap_depth,
+                "fragment_strategy": self.fragmenter.strategy,
+                "routing": c.routing, "hub_failover": c.hub_failover,
+                "adaptive_resync": c.adaptive_resync,
+                "wire_codec": c.wire_codec, "codec_block": c.codec_block,
+                "codec_error_feedback": c.codec_error_feedback,
+                "channel_scheduler": c.channel_scheduler,
+                "multipath_k": c.multipath_k,
+                "fused_updates": c.fused_updates}
+
+    def _upgrade_meta(self, meta: Dict[str, Any]) -> Dict[str, Any]:
+        """Upgrade checkpoint meta of any prior schema version: a key an old
+        checkpoint predates implies what the code of its time did with this
+        config (the JAX package's rules)."""
+        meta = dict(meta)
+        meta.setdefault("fragment_strategy",
+                        "strided" if self.ccfg.strided_fragments
+                        else "contiguous")
+        meta.setdefault("routing", "static")
+        meta.setdefault("hub_failover", False)
+        meta.setdefault("adaptive_resync", False)
+        meta.setdefault("spec", None)
+        meta.setdefault("spec_hash", None)
+        meta.setdefault("wire_codec", "none")
+        meta.setdefault("codec_block", 256)
+        meta.setdefault("codec_error_feedback", True)
+        meta.setdefault("channel_scheduler", "serial")
+        meta.setdefault("multipath_k", 1)
+        meta.setdefault("fused_updates", False)
+        meta["schema_version"] = META_SCHEMA_VERSION
+        return meta
+
+    def _validate_resume_identity(self, meta: Dict[str, Any]):
+        """Reject a resume whose run identity differs from this trainer's.
+        Spec-built trainers compare `spec_hash`, then the hash of the stored
+        spec re-read by this code (a checkpoint written before newer spec
+        fields existed); the error names the differing fields. Other
+        trainers compare the trajectory meta key by key."""
+        from repro_torch.api.spec import (_VOLATILE_RUN_FIELDS,
+                                          ExperimentSpec, diff_specs)
+        if self.spec is not None and meta["spec_hash"] is not None:
+            if meta["spec_hash"] == self.spec.spec_hash:
+                return
+            saved = meta["spec"]
+            if isinstance(saved, dict):
+                try:
+                    if ExperimentSpec.from_dict(saved).spec_hash == \
+                            self.spec.spec_hash:
+                        return
+                except ValueError:
+                    pass
+            detail = ""
+            if isinstance(saved, dict):
+                try:
+                    saved = ExperimentSpec.from_dict(saved).traj_dict()
+                except ValueError:
+                    # unknown fields (a newer writer): diff the raw dict
+                    # without the labels and volatile run fields
+                    saved = {k: v for k, v in saved.items()
+                             if k not in ("name", "note")}
+                    if isinstance(saved.get("run"), dict):
+                        run = {k: v for k, v in saved["run"].items()
+                               if k not in _VOLATILE_RUN_FIELDS}
+                        if run.get("warmup_steps") is None and \
+                                isinstance(run.get("steps"), int):
+                            run["warmup_steps"] = max(10, run["steps"] // 20)
+                        saved["run"] = run
+                detail = "; differing fields: " + "; ".join(
+                    diff_specs(saved, self.spec.traj_dict()))
+            raise ValueError(
+                f"checkpoint was written by a different experiment spec "
+                f"(spec_hash {meta['spec_hash']} != {self.spec.spec_hash})"
+                f"{detail}")
+        for k, want in (("arch", self.mcfg.name), *self._traj_meta().items()):
+            if meta.get(k) != want:
+                raise ValueError(
+                    f"checkpoint {k}={meta.get(k)!r} != trainer {want!r}: "
+                    f"resume requires the saved run's config (data streams, "
+                    f"LR schedule and the protocol event schedule derive "
+                    f"from it)")
+
+    def save_checkpoint(self, path: str):
+        t0 = time.perf_counter()
+        save_pytree(path, self.checkpoint_state())
+        self.ckpt_seconds += time.perf_counter() - t0
+
+    def restore_checkpoint(self, path: str, state: Optional[Dict] = None):
+        """Restore a `checkpoint_state` dump (of either package) into this
+        freshly built trainer of the same model and protocol configs; the
+        run then continues exactly where the saved one stopped. Pass
+        `state` if the file is already loaded."""
+        st = load_pytree(path) if state is None else state
+        if st.get("format") != CKPT_FORMAT:
+            raise ValueError(f"not a {CKPT_FORMAT} checkpoint: {path}")
+        self._validate_resume_identity(self._upgrade_meta(st["meta"]))
+        ts = st["trainer_state"]
+        if int(ts["data_cursor"]) != int(ts["step"]):
+            raise ValueError(
+                f"checkpoint data_cursor={ts['data_cursor']} != "
+                f"step={ts['step']} (stateful loaders are not supported)")
+        self.params_stack = restore_like(self.params_stack, ts["params_stack"])
+        opt = ts["opt_state"]
+        self.opt_state = AdamWState(
+            mu=restore_like(self.opt_state.mu, opt["mu"]),
+            nu=restore_like(self.opt_state.nu, opt["nu"]),
+            count=restore_like(self.opt_state.count, opt["count"]))
+        self.engine.state = es.state_from_dict(self.engine.state, ts["engine"])
+        self.engine.restore_scheduler(st["scheduler"])
+        # TrainerState is the single authority for the run cursors
+        self.engine.wall_clock = float(ts["wall_clock"])
+        self.step = int(ts["step"])
+        self.history = [
+            {k: (v.item() if getattr(v, "shape", None) == () else v)
+             for k, v in rec.items()} for rec in st["history"]]
+        return self

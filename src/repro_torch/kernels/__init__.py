@@ -17,6 +17,8 @@ Kernels:
                  plane (CUDA C++, ``csrc/outer_update.cu``)
   delay_comp   — per-leaf Algorithm-1 delay compensation (CUDA C++,
                  ``csrc/delay_comp.cu``)
+  delta_codec  — per-block absmax int8/int4 wire codec: `quantize_pack`
+                 and `dequantize_unpack` (CUDA C++, ``csrc/delta_codec.cu``)
 
 None of the kernels has a backward: an "auto" wrapper raises when grad mode
 is on and an input requires a gradient (`check_no_grad`), so a training
@@ -52,7 +54,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # trace counts)
 LAUNCHES: Dict[str, int] = {"flash_decode": 0, "rms_norm": 0,
                              "nesterov_2d": 0, "deliver_2d": 0,
-                             "delay_comp": 0}
+                             "delay_comp": 0, "quantize_pack": 0,
+                             "dequantize_unpack": 0}
 
 
 def count_launch(name: str) -> None:

@@ -7,8 +7,11 @@
 
 Runs on CUDA unless ``--device cpu`` is given. Dense archs only: MoE and the
 lock-step path of the SSM/hybrid archs raise until ported (ROADMAP.md,
-Queue A). Loads params from --ckpt (theta_g of a JAX training run, or a bare
-param pytree) or random-inits them from a seeded torch.Generator.
+Queue A). Loads params from --ckpt (theta_g of a training run of either
+package, or a bare param pytree) or random-inits them from a seeded
+torch.Generator. A fused-mode checkpoint (`--fused-updates`) stores theta_g
+as one flat fragment plane: `load_params` rebuilds the run's fragmenter from
+the checkpoint's meta and unpacks the plane into the per-leaf params.
 """
 from __future__ import annotations
 
@@ -20,14 +23,38 @@ import torch
 
 from repro_torch.checkpoint import load_pytree
 from repro_torch.configs import get_config
+from repro_torch.core.flatplane import LANES
+from repro_torch.core.fragments import make_fragmenter
+from repro_torch.core.tree import tree_map
 from repro_torch.kernels import resolve_device
 from repro_torch.models import api
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.weights import params_from_jax
 
-FUSED_TODO = ("fused-mode checkpoints (flat fragment plane) are not loaded "
-              "by the serving path yet (ROADMAP.md, Queue A: "
-              "'fused-checkpoint loading')")
+
+def unflatten_theta(cfg, theta, meta):
+    """theta_g of a fused-mode checkpoint, a ``(total_rows, LANES)`` f32
+    plane, as the per-leaf param tree (numpy f32 leaves): the run's
+    fragmenter rebuilt from the checkpoint's meta, the plane unpacked by
+    `FlatView.unpack_full`."""
+    theta = np.asarray(theta)
+    if theta.ndim != 2 or theta.shape[-1] != LANES:
+        raise ValueError(f"fused checkpoint theta_g has shape {theta.shape}, "
+                         f"expected a (total_rows, {LANES}) flat fragment "
+                         f"plane")
+    specs = api.param_specs(cfg)
+    frag = make_fragmenter(cfg, specs, int(meta.get("num_fragments", 1)),
+                           strategy=meta.get("fragment_strategy", "strided"))
+    if frag.flat.total_rows != theta.shape[0]:
+        raise ValueError(
+            f"flat theta_g has {theta.shape[0]} rows but arch {cfg.name!r} "
+            f"with num_fragments={meta.get('num_fragments')} strategy="
+            f"{meta.get('fragment_strategy')!r} needs {frag.flat.total_rows}"
+            f": checkpoint/arch mismatch")
+    template = tree_map(lambda s: torch.zeros(s.shape, dtype=torch.float32),
+                        specs)
+    frag.flat.unpack_full(template, torch.from_numpy(theta))
+    return tree_map(lambda t: t.numpy(), template)
 
 
 def load_params(cfg, ckpt, device=None, seed: int = 0):
@@ -48,7 +75,7 @@ def load_params(cfg, ckpt, device=None, seed: int = 0):
                              f"serving requested {cfg.name!r}")
         params = state["trainer_state"]["engine"]["theta_g"]
         if meta.get("fused_updates") and not isinstance(params, dict):
-            raise NotImplementedError(FUSED_TODO)
+            params = unflatten_theta(cfg, params, meta)
     else:
         params = state["theta_g"] if "theta_g" in state else state
     return params_from_jax(cfg, params, device)

@@ -3,7 +3,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper_150m \
         --method cocodc --fused-updates --workers 4 --fragments 4 --H 24 \
-        --tau 8 --steps 48 --local-batch 8 --seq-len 256 --eval-every 24
+        --tau 8 --steps 48 --local-batch 8 --seq-len 256 --eval-every 24 \
+        --wire-codec int8 --ckpt run.msgpack --ckpt-every 24
+
+and later the same flags with ``--resume run.msgpack`` (``--stop-at N``
+pauses a run at step N; the final state is saved to ``--ckpt``).
 
 Every run is defined by a declarative `ExperimentSpec`: the flags map onto
 spec fields, `--spec path.json` launches from a saved spec (explicit flags
@@ -11,11 +15,12 @@ override its fields), and `--print-spec` emits the composed spec as JSON
 without training. The trainer is built through
 `repro_torch.api.build_experiment`. Runs on CUDA unless `--device cpu`.
 
-This slice runs the static network with the serial channel scheduler and no
-wire codec. Flags outside it (--dynamics, --mesh, --routing routed,
---hub-failover, --channel-scheduler fairshare, --multipath-k > 1,
---wire-codec int8|int4, --ckpt, --resume, --ckpt-every, --stop-at) raise
-NotImplementedError naming their ROADMAP.md item.
+The port runs the static network with the serial channel scheduler, with
+or without the wire codec, and checkpoints and resumes in the JAX package's
+format (either package resumes the other's checkpoint). Flags outside it
+(--dynamics, --mesh, --routing routed, --hub-failover, --channel-scheduler
+fairshare, --multipath-k > 1) raise NotImplementedError naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -28,11 +33,10 @@ import time
 
 from repro_torch.api import (ExperimentSpec, build_experiment,
                              registered_methods)
+from repro_torch.checkpoint import load_pytree, restore_like
 from repro_torch.core.network import MESH_PROFILES, SCENARIOS
-
-CKPT_TODO = ("checkpoint writing and resume (--ckpt, --resume, --ckpt-every, "
-             "--stop-at) are not ported yet (ROADMAP.md, Queue A: "
-             "'checkpoint writing and resume')")
+from repro_torch.core.trainer import CKPT_FORMAT
+from repro_torch.core.tree import leaves_with_path
 
 
 def spec_from_args(args) -> ExperimentSpec:
@@ -165,7 +169,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--wire-codec", default=None,
                     choices=["none", "int8", "int4"],
                     help="quantize pseudo-gradient deltas before the WAN "
-                         "(only 'none' is ported yet; others raise)")
+                         "(per-block absmax, kernels/delta_codec); none "
+                         "keeps the raw f32/sync_dtype wire")
     ap.add_argument("--codec-block", default=None, type=int,
                     help="elements per quantization block (one f32 scale "
                          "ships per block; default 256)")
@@ -181,14 +186,21 @@ def make_parser() -> argparse.ArgumentParser:
                          "(one launch per fragment per stage; default off = "
                          "per-leaf path)")
     ap.add_argument("--ckpt", default=None,
-                    help="checkpoint path (not ported yet: raises)")
+                    help="checkpoint path: the full run state is saved here "
+                         "at the end of the run (and every --ckpt-every "
+                         "steps)")
     ap.add_argument("--ckpt-every", type=int, default=None,
-                    help="checkpoint cadence (not ported yet: raises)")
+                    help="atomically checkpoint the full run state to --ckpt "
+                         "every N steps (segment boundaries)")
     ap.add_argument("--resume", default=None,
-                    help="checkpoint to resume from (not ported yet: raises)")
+                    help="checkpoint to resume from: a trainer_state_v1 "
+                         "checkpoint (of either package) restores the full "
+                         "run (exact trajectory); a legacy dict restores "
+                         "theta_g/momentum only")
     ap.add_argument("--stop-at", type=int, default=None,
-                    help="pause the run at this step (not ported yet: "
-                         "raises)")
+                    help="pause the run at this absolute step (the LR "
+                         "schedule still spans the spec's steps); checkpoint "
+                         "with --ckpt and continue later with --resume")
     ap.add_argument("--history-out", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; pass cpu to run on the "
@@ -208,14 +220,16 @@ def run(argv=None):
     if args.print_spec:
         print(spec.to_json())
         return None
-    if args.ckpt or args.resume or args.stop_at is not None \
-            or spec.run.ckpt_every:
-        raise NotImplementedError(CKPT_TODO)
+    if spec.run.ckpt_every and not args.ckpt:
+        ap.error("--ckpt-every requires --ckpt (nowhere to save)")
 
     trainer = build_experiment(spec, device=args.device)
+    if args.resume:
+        resume(trainer, args.resume)
     t0 = time.time()
-    hist = trainer.run(eval_every=spec.run.eval_every,
-                       log=lambda s: print(s, flush=True))
+    hist = trainer.run(steps=args.stop_at, eval_every=spec.run.eval_every,
+                       log=lambda s: print(s, flush=True),
+                       ckpt_path=args.ckpt, ckpt_every=spec.run.ckpt_every)
     dt = time.time() - t0
     stats = trainer.engine.stats()
     link_stats = trainer.engine.link_stats()
@@ -229,6 +243,12 @@ def run(argv=None):
                   f"busy {rec['busy_seconds']:8.1f}s "
                   f"({rec['busy_fraction']*100:4.1f}%)", flush=True)
         print(f"  busiest link: {link_stats['busiest_link']}", flush=True)
+    if args.ckpt:
+        saved = trainer.ckpt_seconds
+        trainer.save_checkpoint(args.ckpt)
+        print(f"checkpoint (full run state, step {trainer.step}) -> "
+              f"{args.ckpt} in {trainer.ckpt_seconds - saved:.1f}s",
+              flush=True)
     if args.history_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.history_out)),
                     exist_ok=True)
@@ -238,6 +258,28 @@ def run(argv=None):
                        "link_stats": link_stats}, f, indent=1)
         print(f"history -> {args.history_out}")
     return trainer
+
+
+def resume(trainer, path: str) -> None:
+    """Restore `trainer` from `path`: a full-run checkpoint restores the
+    whole run state; a legacy dict restores theta_g and the outer momentum
+    only, and every worker restarts from the restored consensus."""
+    t0 = time.perf_counter()
+    state = load_pytree(path)
+    if isinstance(state, dict) and state.get("format") == CKPT_FORMAT:
+        trainer.restore_checkpoint(path, state=state)
+        print(f"resumed full run state from {path} (step {trainer.step}, "
+              f"wall {trainer.engine.wall_clock:.0f}s) in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        return
+    eng = trainer.engine
+    eng.theta_g = restore_like(eng.theta_g, state["theta_g"])
+    eng.momentum = restore_like(eng.momentum, state["momentum"])
+    theta = dict(leaves_with_path(eng.theta_g))
+    for path_, leaf in leaves_with_path(trainer.params_stack):
+        leaf.copy_(theta[path_][None].expand_as(leaf))
+    print(f"resumed (legacy: theta_g/momentum only) from {path} "
+          f"(step {state.get('step')})", flush=True)
 
 
 def main(argv=None) -> int:

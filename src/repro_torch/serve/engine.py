@@ -19,10 +19,12 @@ Time: the engine keeps the JAX engine's VIRTUAL clock, advanced by the same
 `CostModel`, so its stats (everything but ``wall_s``) equal the JAX engine's
 on the same trace. ``wall_s`` is the host clock around the run.
 
-Sampling: greedy at temperature 0. Above it, the token at sequence position p
-of request rid is drawn by Gumbel-max from a torch.Generator seeded with
-(engine seed, rid, p): every request has its own deterministic stream. (JAX
-folds threefry keys; those bits cannot be reproduced here.)
+Sampling: greedy at temperature 0. Above it, the JAX engine's draw: request
+rid has the key ``fold_in(PRNGKey(seed), rid)``, and the token at sequence
+position p is ``argmax(gumbel(fold_in(key, p)) + logits / temperature)``.
+The threefry keys and the Gumbel noise come from `repro_torch.data.prng`
+(numpy on the host, one (vocab,) draw per sampled token), so the port
+samples the JAX engine's tokens.
 
 There is no jit and so nothing to retrace; in place of the JAX engine's trace
 counts, `kernel_launches()` reports the launch count of each kernel of the
@@ -40,6 +42,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data import prng
 from repro_torch.models import api
 from repro_torch.serve import cache as cache_lib
 
@@ -47,12 +50,6 @@ from repro_torch.serve import cache as cache_lib
 SERVING_KERNELS = ("flash_decode", "rms_norm")
 
 CACHE_KEYS = ("k", "v", "kv_pos", "pos")
-
-
-def stream_seed(seed: int, rid: int, position: int) -> int:
-    """Seed of the sampling stream of request `rid` at sequence `position`."""
-    return int(np.random.SeedSequence([seed, rid, position])
-               .generate_state(2, np.uint32).view(np.uint64)[0] >> np.uint64(1))
 
 
 def to_device(tree, device):
@@ -190,17 +187,16 @@ class ServeEngine:
     # ------------------------------------------------------------- sampling
 
     def _sample(self, logits, rids: List[int], positions: List[int]):
-        """logits: (n, V) f32 -> (n,) int32 tokens; row i samples the stream
-        of request rids[i] at sequence position positions[i]."""
+        """logits: (n, V) f32 -> (n,) int32 tokens; row i draws from the key
+        of request rids[i] folded with its sequence position positions[i]."""
         if self.temperature <= 0.0:
             return logits.argmax(-1).to(torch.int32)
-        u = torch.stack([
-            torch.rand(logits.shape[-1], device=self.device,
-                       generator=torch.Generator(self.device).manual_seed(
-                           stream_seed(self.seed, rid, p)))
-            for rid, p in zip(rids, positions)])
-        gumbel = -torch.log(-torch.log(u))
-        return (logits / self.temperature + gumbel).argmax(-1).to(torch.int32)
+        base = prng.prng_key(self.seed)
+        keys = np.stack([prng.fold_in(prng.fold_in(base, rid), p)
+                         for rid, p in zip(rids, positions)])
+        gumbel = torch.from_numpy(prng.gumbel(keys, (logits.shape[-1],)))
+        return (gumbel.to(logits.device) + logits / self.temperature
+                ).argmax(-1).to(torch.int32)
 
     def _eos_hit(self, toks):
         if self.eos_id is None:

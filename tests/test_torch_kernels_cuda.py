@@ -28,6 +28,7 @@ from repro_torch.kernels.outer_update.ops import (fused_deliver,  # noqa: E402
                                                   outer_nesterov)
 from repro_torch.kernels.outer_update.ref import (deliver_ref,  # noqa: E402
                                                   nesterov_ref)
+from repro_torch.kernels.delta_codec import ops as codec_ops  # noqa: E402
 
 BF16_ULP = 2.0 ** -7
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -107,6 +108,28 @@ def assert_term_dominates(full, without):
     full, without = _f32(full), _f32(without)
     ratio = np.abs(full - without) / (1e-6 + 1e-5 * np.abs(full))
     assert np.median(ratio) > 1e3, np.median(ratio)
+
+
+def codec_case(case, block, bits, seed):
+    """A flat f32 array of whole `block`-element blocks, each at its own
+    scale (1e-4 to 10): "ragged" adds a partial last block; "zero" zeroes
+    block 1; "ties" makes block 0 (and block 2, negated) hit every
+    half-integer code, x = (k + 0.5) * scale exactly (absmax = levels *
+    2^-6 makes the scale 2^-6 exactly: f32(levels) * f32(1/levels) == 1)."""
+    rng = np.random.default_rng(seed)
+    levels = {8: 127, 4: 7}[bits]
+    n = 5 * block + (max(1, block // 2 - 1) if case == "ragged" else 0)
+    mag = np.repeat(10.0 ** rng.uniform(-4, 1, size=-(-n // block)), block)
+    x = (rng.standard_normal(n) * mag[:n]).astype(np.float32)
+    if case == "zero":
+        x[block:2 * block] = 0.0
+    elif case == "ties":
+        e = 2.0 ** -6
+        k = np.arange(block) % (2 * levels) - levels
+        t = ((k + 0.5) * e).astype(np.float32)
+        t[0] = levels * e
+        x[:block], x[2 * block:3 * block] = t, -t
+    return x
 
 
 @pytest.fixture(scope="module")
@@ -280,3 +303,84 @@ def test_kernels_refuse_gradients_on_card(cuda):
     # the plain version keeps the graph
     y = rms_norm(x, torch.ones(64, device=cuda), impl="ref")
     assert y.grad_fn is not None
+
+
+# the codec's cases on the card: paper_150m-like fragment planes at block
+# 256, an unaligned block, a ragged leaf, ties, a zero block, and a row
+# slice of a plane starting at an odd row
+CODEC_CASES = ["plane", "ragged", "ties", "zero", "odd_rows"]
+
+
+def _codec_input(case, block, bits, device):
+    if case == "plane":
+        gen = torch.Generator(device).manual_seed(block)
+        return torch.randn(37, 1024, generator=gen, device=device) * 1e-3
+    if case == "odd_rows":
+        gen = torch.Generator(device).manual_seed(block + 1)
+        return (torch.randn(40, 1024, generator=gen, device=device))[5:38]
+    x = torch.from_numpy(codec_case(case, block, bits, seed=block)).to(device)
+    return x.reshape(-1, 7) if case == "ragged" and x.numel() % 7 == 0 else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CODEC_CASES)
+@pytest.mark.parametrize("codec", ["int8", "int4"])
+@pytest.mark.parametrize("block", [256, 130, 2])
+def test_codec_kernels_match_plain_bitwise_on_card(cuda, block, codec, case):
+    x = _codec_input(case, block, 8 if codec == "int8" else 4, cuda)
+    kw = dict(codec=codec, block=block)
+    packed, scales = codec_ops.encode_array(x, **kw)
+    want_p, want_s = codec_ops.encode_array(x, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, want_p) and torch.equal(scales, want_s)
+    got = codec_ops.decode_array(packed, scales, x.shape, x.dtype, **kw)
+    want = codec_ops.decode_array(want_p, want_s, x.shape, x.dtype,
+                                  impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if case == "zero":
+        assert not scales[1].item() and not got.reshape(-1)[
+            block:2 * block].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_codec_launches_per_initiation_on_card(cuda, fused):
+    """One `quantize_pack` and one `dequantize_unpack` launch per fused
+    initiation, one of each per leaf of the initiated fragment per leaf."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import CoCoDCConfig
+    from repro_torch.core import engine_state as es
+    from repro_torch.core.fragments import make_fragmenter
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import api
+    cfg = get_config("bench_tiny")
+    ccfg = CoCoDCConfig(num_workers=2, local_steps=8, num_fragments=4,
+                        overlap_depth=2, fused_updates=fused,
+                        wire_codec="int8")
+    params = api.init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    stack = tree_map(lambda a: a[None].repeat((2,) + (1,) * a.dim()), params)
+    frag = make_fragmenter(cfg, api.param_specs(cfg), 4)
+    st = es.init_state("cocodc", ccfg, stack, frag=frag)
+    fn = es.make_engine_fns("cocodc", ccfg, frag)
+    for leaf in tree_leaves(stack):
+        leaf.add_(torch.randn(leaf.shape, device=cuda) * 1e-3)
+    kernels.reset_launch_counts()
+    fn.initiate(st, 0, stack, 1)
+    torch.cuda.synchronize()
+    n = 1 if fused else len(frag.leaves_in(1))
+    counts = kernels.launch_counts()
+    assert counts["quantize_pack"] == counts["dequantize_unpack"] == n
+    assert st.wire_residual is not None
+
+
+@pytest.mark.cuda
+def test_codec_kernels_refuse_gradients_on_card(cuda):
+    x = torch.randn(4, 256, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        codec_ops.encode_array(x, codec="int8", block=256)
+    with pytest.raises(RuntimeError, match="no backward"):
+        codec_ops.codec_roundtrip_array(x, codec="int4", block=256)
+    with pytest.raises(ValueError, match="even"):
+        codec_ops.encode_array(x.detach(), codec="int4", block=131)

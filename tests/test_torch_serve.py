@@ -1,8 +1,11 @@
 """The port's serving slice held against the JAX package's: the same trace
 through both `ServeEngine`s gives the same greedy tokens and the same stats
-(everything but the host clock's ``wall_s``), in continuous and static modes;
-checkpoints written by `repro.checkpoint` serve the same tokens; the CLI
-runs; and the port imports nothing of JAX or of the JAX package.
+(everything but the host clock's ``wall_s``), in continuous and static modes,
+greedy and sampled at temperature 0.8 (the same threefry keys and Gumbel
+draw); checkpoints written by `repro.checkpoint` serve the same tokens, and
+a fused-mode training checkpoint unpacks to the params the JAX package's
+`_unflatten_theta` gives; the CLI runs; and the port imports nothing of JAX
+or of the JAX package.
 
 Token identity is checked at f32 compute (bench_tiny natively, qwen3-0.6b
 reduced with compute_dtype replaced); bf16 logits are held to a tolerance in
@@ -109,9 +112,68 @@ def test_sampling_streams_distinct_and_deterministic():
     assert run(8) != a
 
 
+@pytest.mark.parametrize("mode", ["continuous", "static"])
+def test_sampling_matches_jax_engine_at_temperature(mode):
+    """At temperature 0.8 both engines draw from the same keys
+    (fold_in(fold_in(PRNGKey(seed), rid), position)) and the same Gumbel
+    noise: identical tokens on the same params, trace and seed."""
+    jcfg, tcfg = _configs("bench_tiny")
+    jp = jax_api.init_params(jcfg, jax.random.PRNGKey(1))
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    trace = _trace(7, jcfg.vocab, seed=3)
+    jeng, jrecs, teng, trecs = _run_both(
+        jcfg, tcfg, jp, tp, trace, n_slots=3, cache_len=32, max_prompt=14,
+        prefill_chunk=5, mode=mode, temperature=0.8, seed=11)
+    want = [(r.rid, r.tokens) for r in jrecs]
+    assert [(r.rid, r.tokens) for r in trecs] == want
+    # sampled, not greedy: some token differs from the argmax run
+    greedy = ServeEngine(tcfg, tp, device="cpu", n_slots=3, cache_len=32,
+                         max_prompt=14, prefill_chunk=5, mode=mode)
+    assert [(r.rid, r.tokens) for r in greedy.run_trace(
+        [Request(**r) for r in trace])] != want
+
+
+def test_fused_checkpoint_params_match_jax_unflatten(tmp_path):
+    """theta_g of a fused-mode training checkpoint (one flat fragment
+    plane) unpacks to the JAX package's `_unflatten_theta` params and to the
+    trainer's consensus model, and serves."""
+    from repro.launch.serve import _unflatten_theta
+    from repro_torch.core.tree import leaves_with_path
+    from repro_torch.launch import train
+    ck = os.path.join(tmp_path, "fused.msgpack")
+    tr = train.run(["--device", "cpu", "--arch", "bench_tiny", "--method",
+                    "cocodc", "--fused-updates", "--wire-codec", "int8",
+                    "--fragments", "3", "--fragment-strategy", "skewed",
+                    "--steps", "8", "--H", "8", "--tau", "2",
+                    "--local-batch", "2", "--seq-len", "16",
+                    "--eval-every", "8", "--ckpt", ck])
+    st = port_serve.load_pytree(ck)
+    tcfg = get_config("bench_tiny")
+    mine = port_serve.unflatten_theta(
+        tcfg, st["trainer_state"]["engine"]["theta_g"], st["meta"])
+    theirs = _unflatten_theta(jax_config("bench_tiny"),
+                              st["trainer_state"]["engine"]["theta_g"],
+                              st["meta"])
+    got = leaves_with_path(mine)
+    want = jax.tree_util.tree_flatten_with_path(theirs)[0]
+    assert len(got) == len(want) == len(leaves_with_path(tr.engine.theta_g))
+    for (_, a), (_, b), (_, c) in zip(got, want,
+                                      leaves_with_path(tr.engine.theta_g)):
+        assert np.array_equal(a, np.asarray(b))
+        assert np.array_equal(a, c.numpy())
+    params = port_serve.load_params(tcfg, ck, "cpu")
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves_with_path(params), leaves_with_path(tr.engine.theta_g)))
+    eng = port_serve.run(["--device", "cpu", "--arch", "bench_tiny", "--ckpt",
+                          ck, "--requests", "3", "--prompt-len", "12",
+                          "--gen-len", "6", "--temperature", "0.8"])
+    assert eng.stats()["completed"] == 3
+
+
 def test_serves_checkpoint_written_by_jax_package(tmp_path):
     """A param checkpoint from `repro.checkpoint` serves the same tokens in
-    both packages; a fused-mode checkpoint is refused, not misread."""
+    both packages; a fused-mode checkpoint whose plane does not fit the
+    arch is refused, not misread."""
     from repro.launch.serve import load_params as jax_load_params
     jcfg, tcfg = _configs("bench_tiny")
     jp = jax_api.init_params(jcfg, jax.random.PRNGKey(5))
@@ -132,7 +194,7 @@ def test_serves_checkpoint_written_by_jax_package(tmp_path):
                         "meta": {"arch": tcfg.name, "fused_updates": True},
                         "trainer_state": {"engine": {
                             "theta_g": np.zeros((4, 1024), np.float32)}}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="checkpoint/arch mismatch"):
         port_serve.load_params(tcfg, fused, "cpu")
 
 

@@ -2,8 +2,10 @@
 package's: the same `--print-spec` JSON and `spec_hash` for the same flags,
 `--spec` round trips, a CPU smoke run, the static network's costs copied to
 the bit, a run with every protocol extension of the slice on a
-heterogeneous network matching the JAX run, and every option outside the
-slice raising NotImplementedError (never a silent fallback)."""
+heterogeneous network matching the JAX run, a compressed run paused with
+--stop-at and continued with --resume replaying the uninterrupted run, and
+every option outside the port raising NotImplementedError (never a silent
+fallback)."""
 from __future__ import annotations
 
 import json
@@ -73,17 +75,53 @@ def test_cli_needs_cuda_or_an_explicit_device():
     ["--mesh", "ring"],
     ["--topology", "asym4", "--routing", "routed"],
     ["--channel-scheduler", "fairshare"],
-    ["--wire-codec", "int8"],
-    ["--ckpt", "x.msgpack"],
-    ["--resume", "x.msgpack"],
-    ["--stop-at", "3"],
-    ["--ckpt", "x.msgpack", "--ckpt-every", "2"],
 ])
 def test_out_of_scope_options_raise(flags):
     base = ["--arch", "bench_tiny", "--workers", "4", "--steps", "2",
             "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train.run(base + flags)
+
+
+def test_cli_stop_and_resume_with_codec(tmp_path, capsys):
+    """`--wire-codec int8 --ckpt f --stop-at 12`, then `--resume f`: the
+    resumed run ends where the uninterrupted run ends, bitwise; `--ckpt-every`
+    without `--ckpt` is refused."""
+    flags = FLAGS + ["--device", "cpu", "--wire-codec", "int8", "--steps",
+                     "24", "--eval-every", "6"]
+    ck = str(tmp_path / "run.msgpack")
+    full = train.run(flags)
+    half = train.run(flags + ["--stop-at", "12", "--ckpt", ck])
+    assert half.step == 12
+    assert "checkpoint (full run state, step 12)" in capsys.readouterr().out
+    rest = train.run(flags + ["--resume", ck])
+    assert rest.history == full.history
+    assert rest.engine.stats()["compression_ratio"] > 3.9
+    got, want = (leaves_with_path(t.params_stack) for t in (rest, full))
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(got, want))
+    with pytest.raises(SystemExit):
+        train.run(flags + ["--ckpt-every", "6"])
+
+
+def test_cli_resumes_legacy_theta_checkpoint(tmp_path):
+    """A legacy dict of theta_g and the outer momentum restores the
+    consensus model and momentum, and every worker restarts from it."""
+    from repro_torch.checkpoint import save_pytree
+    flags = FLAGS + ["--device", "cpu", "--steps", "3"]
+    src = train.run(flags)
+    ck = str(tmp_path / "legacy.msgpack")
+    save_pytree(ck, {"theta_g": src.engine.theta_g,
+                     "momentum": src.engine.momentum, "step": 3})
+    tr = build_experiment(src.spec, device="cpu")
+    train.resume(tr, ck)
+    want = leaves_with_path(src.engine.theta_g)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves_with_path(tr.engine.theta_g), want))
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves_with_path(tr.engine.momentum),
+        leaves_with_path(src.engine.momentum)))
+    for (_, stack), (_, g) in zip(leaves_with_path(tr.params_stack), want):
+        assert all(torch.equal(w, g) for w in stack)
 
 
 @pytest.mark.parametrize("name", ["paper", "asym4", "hub_spoke",
