@@ -51,7 +51,24 @@ Phases, in order; any failure raises and exits non-zero before the last line:
      threefry Gumbel draw per token;
  15. parity of a full-width f32 training run with the int8 codec through
      the kernels with the same run through their plain versions (identical
-     stats, NLL within 1e-4 relative).
+     stats, NLL within 1e-4 relative);
+ 16. the scan kernels (`wkv_scan`, `lru_scan`) against their plain versions
+     (rtol 1e-4, atol 1e-5 in f32, one bf16 ulp in bf16; `wkv_scan`'s final
+     state and `lru_scan` at T = 1 bitwise) at rwkv6-3b's and
+     recurrentgemma-9b's decode shapes (8 x 40 heads of 64 with a state;
+     4 x 4096 with h0) and forward shapes (T = 512 and a ragged 300), with
+     times at both;
+ 17. lock-step serving at full width: `repro_torch.launch.serve --arch
+     rwkv6-3b --slots 8 --prompt-len 128 --gen-len 64`, random weights, bf16,
+     prefill and decode tok/s, peak memory, exact `wkv_scan` and `rms_norm`
+     launch counts, and a torch.profiler trace of a short run;
+ 18. the same for recurrentgemma-9b (`--slots 4 --gen-len 32`, exact
+     `lru_scan` counts), after the earlier phases' memory is freed;
+ 19. parity at full width in f32 for both families: identical greedy
+     tokens of the kernel path and the plain path (P=32, G=16), and
+     `forward` with the scan kernels against the plain scans on a (4, 512)
+     batch, within 1e-3 of the largest |h| (~35 chained scans and matmuls
+     that sum in another order).
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -94,14 +111,15 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def max_err(got, want, dtype):
+def max_err(got, want, dtype, rtol=1e-5):
     """Max |got - want|, after checking the stated tolerance: f32 at
-    rtol = atol = 1e-5 (reduction order); bf16 at one bf16 ulp of each
-    element plus 1e-5 of the tensor's magnitude."""
+    atol = 1e-5 and `rtol` (1e-5 for reduction order; the scans take the
+    JAX package's 1e-4 for them); bf16 at one bf16 ulp of each element plus
+    1e-5 of the tensor's magnitude."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     if dtype == torch.float32:
-        tol = 1e-5 + 1e-5 * want.abs()
+        tol = 1e-5 + rtol * want.abs()
     else:
         tol = BF16_ULP * want.abs() + 1e-5 * want.abs().max()
     check(bool((err <= tol).all()),
@@ -1070,6 +1088,258 @@ def serve_checkpoint_phase(ck, theta_kill):
 
 
 # ---------------------------------------------------------------------------
+# lock-step serving of the recurrent families: scan kernels, serving, parity
+# ---------------------------------------------------------------------------
+
+
+RWKV_ARGS = ["--arch", "rwkv6-3b", "--slots", "8", "--prompt-len", "128",
+             "--gen-len", "64", "--temperature", "0", "--seed", "0",
+             "--device", "cuda"]
+RG_ARGS = ["--arch", "recurrentgemma-9b", "--slots", "4", "--prompt-len",
+           "128", "--gen-len", "32", "--temperature", "0", "--seed", "0",
+           "--device", "cuda"]
+
+
+def n_scan_layers(cfg):
+    """Scan launches a decode step or forward makes: one per RWKV-6 layer,
+    one per RG-LRU block of the hybrid."""
+    if cfg.family == "ssm":
+        return cfg.n_layers
+    return sum(k == "rglru"
+               for k in (cfg.block_pattern * cfg.n_layers)[:cfg.n_layers])
+
+
+def scan_phase(dev, timer):
+    """Both scan kernels against their plain versions at the serving path's
+    decode shapes and the forward's, in bf16 (the path's) and f32 for
+    `wkv_scan` (`lru_scan` takes f32 only); times, bounds and plain times at
+    the decode shape (the main path's) and at T = 512."""
+    from repro_torch.kernels.rglru_scan.ops import lru_scan
+    from repro_torch.kernels.rglru_scan.ref import lru_scan_ref
+    from repro_torch.kernels.rwkv6_scan.ops import wkv_scan
+    from repro_torch.kernels.rwkv6_scan.ref import wkv_scan_ref
+    gen = torch.Generator(dev).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    err = {"wkv_scan": 0.0, "lru_scan": 0.0}
+    times = {"wkv_scan": {}, "lru_scan": {}}
+    H, hd = 40, 64
+    wkv_cases = [("decode B=8 T=1", 8, 1, True), ("forward B=4 T=512", 4,
+                                                   512, False),
+                 ("ragged B=2 T=300", 2, 300, True)]
+    for name, B, T, with_s0 in wkv_cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            r, k, v = (rnd(B, T, H, hd, scale=0.5).to(dtype)
+                       for _ in range(3))
+            w = torch.sigmoid(rnd(B, T, H, hd)).to(dtype)
+            u = rnd(H, hd, scale=0.1)
+            s0 = rnd(B, H, hd, hd) if with_s0 else None
+            o, sT = wkv_scan(r, k, v, w, u, s0)
+            torch.cuda.synchronize()
+            o_ref, s_ref = wkv_scan_ref(r, k, v, w, u, s0)
+            err["wkv_scan"] = max(err["wkv_scan"],
+                                  max_err(o, o_ref, dtype, rtol=1e-4),
+                                  max_err(sT, s_ref, torch.float32))
+            check(torch.equal(sT, s_ref), f"wkv_scan state not bitwise at "
+                  f"{name} {dtype}")
+            if dtype != torch.bfloat16 or name.startswith("ragged"):
+                continue
+            es = r.element_size()
+            n = B * T * H * hd
+            nbytes = 5 * n * es + u.numel() * 4 + B * H * hd * hd * 4 * (
+                2 if with_s0 else 1)
+            b, by = bound_ms(nbytes, 7 * n * hd, torch.float32)
+            times["wkv_scan"][name] = {
+                "ms": timer(lambda: wkv_scan(r, k, v, w, u, s0)),
+                "plain_ms": timer(lambda: wkv_scan_ref(r, k, v, w, u, s0),
+                                  iters=5 if T > 1 else 30),
+                "bound_ms": b, "bound_by": by, "library_ms": None}
+    D = 4096
+    lru_cases = [("decode B=4 T=1", 4, 1, True), ("forward B=4 T=512", 4,
+                                                   512, False),
+                 ("ragged B=4 T=300 h0", 4, 300, True),
+                 ("ragged D=130", 2, 300, False)]
+    for name, B, T, with_h0 in lru_cases:
+        Dn = 130 if name.endswith("D=130") else D
+        a = torch.sigmoid(rnd(B, T, Dn))
+        bb = rnd(B, T, Dn)
+        h0 = rnd(B, Dn) if with_h0 else None
+        got = lru_scan(a, bb, h0)
+        torch.cuda.synchronize()
+        want = lru_scan_ref(a, bb, h0)
+        err["lru_scan"] = max(err["lru_scan"],
+                              max_err(got, want, torch.float32, rtol=1e-4))
+        if T == 1:
+            check(torch.equal(got, want), "lru_scan at T=1 not bitwise")
+        if name.startswith("ragged"):
+            continue
+        n = B * T * Dn
+        b, by = bound_ms((3 * n + (B * Dn if with_h0 else 0)) * F32, 2 * n,
+                         torch.float32)
+        times["lru_scan"][name] = {
+            "ms": timer(lambda: lru_scan(a, bb, h0)),
+            "plain_ms": timer(lambda: lru_scan_ref(a, bb, h0)),
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+    log(f"scans: wkv_scan == plain at H=40 hd=64 {[c[0] for c in wkv_cases]}"
+        f" in bf16 and f32 (final state bitwise), lru_scan == plain at "
+        f"D=4096 {[c[0] for c in lru_cases]} (T=1 bitwise); max abs err "
+        f"{err}")
+    for kname, rows in times.items():
+        for name, r in rows.items():
+            log(f"  time {kname} {name}: " + json.dumps(r))
+    return err, times
+
+
+def lockstep_profile(argv, scan_name):
+    """Device busy share of a short lock-step run (P=4, G=4; the full run
+    before it warmed every kernel up) under torch.profiler: summed kernel
+    time over the wall time, and the scan kernel's device time a launch."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    short = argv + ["--prompt-len", "4", "--gen-len", "4"]
+    args = serve.parse_args(short)
+    cfg = get_config(args.arch)
+    params = api.prepare_params(cfg, serve.load_params(cfg, None, DEVICE),
+                                release=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve._serve_lockstep(cfg, params, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")
+          and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in ev)
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    scan = [e for e in ev if f"{scan_name}_kernel" in e.key]
+    scan_us = (sum(e.self_device_time_total for e in scan)
+               / max(1, sum(e.count for e in scan)))
+    steps = args.prompt_len + args.gen_len - 1
+    log(f"profile {cfg.name} lock-step {args.slots} x ({args.prompt_len} + "
+        f"{args.gen_len}): wall {wall:.3f} s ({wall / steps * 1e3:.1f} ms a "
+        f"step under the profiler); device busy {busy_us / 1e6:.3f} s "
+        f"({busy_us / steps / 1e3:.2f} ms a step) = {busy_us / 1e6 / wall:.1%}"
+        f" of wall; {scan_name} {scan_us:.2f} us of device time a launch")
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+    check(scan, f"no {scan_name} kernel in the trace")
+    del params
+    torch.cuda.empty_cache()
+    return busy_us / 1e6 / wall, scan_us / 1e3
+
+
+def lockstep_phase(argv, scan_name):
+    """One full-width lock-step run through the CLI entry point, with its
+    exact launch counts, then a profiled short run. Returns (launches,
+    summary)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = serve.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    args = serve.parse_args(argv)
+    cfg = get_config(args.arch)
+    B, P, G = args.slots, args.prompt_len, args.gen_len
+    steps = P + G - 1
+    n_scan, n_norm = n_scan_layers(cfg), 2 * cfg.n_layers + 1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    summary = {"prefill_tok_s": B * P / run.prefill_s,
+               "decode_tok_s": B * G / run.decode_s,
+               "prefill_ms_per_step": run.prefill_s / P * 1e3,
+               "decode_ms_per_step": run.decode_s / (G - 1) * 1e3,
+               "wall_s": wall, "peak_gib": peak}
+    log(f"serve {cfg.name} lock-step {B} x ({P} + {G}), bf16: prefill "
+        f"{summary['prefill_tok_s']:.1f} tok/s "
+        f"({summary['prefill_ms_per_step']:.2f} ms a step), decode "
+        f"{summary['decode_tok_s']:.1f} tok/s "
+        f"({summary['decode_ms_per_step']:.2f} ms a step); {wall:.2f} s wall "
+        f"with the weights' init; peak memory {peak:.2f} GiB")
+    log(f"  launches: {launches}")
+    check(run.tokens.shape == (B, G), f"tokens {run.tokens.shape}")
+    check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()),
+          "token id range")
+    check(launches[scan_name] == n_scan * steps,
+          f"{scan_name} launches {launches[scan_name]} != {n_scan} x {steps}")
+    check(launches["rms_norm"] == n_norm * steps,
+          f"rms_norm launches {launches['rms_norm']} != {n_norm} x {steps}")
+    others = {k: v for k, v in launches.items()
+              if k not in (scan_name, "rms_norm") and v}
+    check(not others, f"other kernels launched on the path: {others}")
+    del run
+    summary["busy_share"], summary["scan_device_ms"] = lockstep_profile(
+        argv, scan_name)
+    return launches, summary
+
+
+def recurrent_parity_phase():
+    """Full width, f32 compute: the kernel path's greedy tokens equal the
+    plain path's (P=32, G=16), and `forward` through the scan kernels agrees
+    with the plain scans on a (4, 512) batch within 1e-3 of max |h|."""
+    import argparse
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import prng
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    out = {}
+    for arch, B, flag, scan_name in (("rwkv6-3b", 8, "wkv_impl", "wkv_scan"),
+                                     ("recurrentgemma-9b", 4, "lru_impl",
+                                      "lru_scan")):
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(arch),
+                                  compute_dtype="float32")
+        params = serve.load_params(cfg, None, DEVICE, seed=1)
+        cp = api.prepare_params(cfg, params)     # f32: shares the masters
+        args = argparse.Namespace(slots=B, prompt_len=32, gen_len=16,
+                                  temperature=0.0, seed=1, device=DEVICE)
+        toks = {impl: serve._serve_lockstep(cfg, cp, args, impl=impl).tokens
+                for impl in ("auto", "ref")}
+        check(np.array_equal(toks["auto"], toks["ref"]),
+              f"{arch} f32 greedy tokens: kernel path != plain path")
+        del cp
+        batch = {"tokens": torch.from_numpy(prng.randint(
+            prng.prng_key(2), (4, 512), 0, cfg.vocab)).to(DEVICE)}
+        h = {}
+        with torch.no_grad():
+            for impl in ("kernel", "ref"):
+                kernels.reset_launch_counts()
+                h[impl] = api.forward(cfg, params, batch, **{flag: impl})
+                torch.cuda.synchronize()
+                if impl == "kernel":
+                    n = kernels.launch_counts()[scan_name]
+        n_scan = n_scan_layers(cfg)
+        check(n == n_scan, f"{scan_name} launches {n} in the forward != "
+              f"{n_scan}")
+        scale = h["ref"].abs().max().item()
+        diff = (h["kernel"] - h["ref"]).abs().max().item()
+        check(bool(torch.isfinite(h["kernel"]).all()), "non-finite forward")
+        check(diff <= 1e-3 * scale, f"{arch} forward kernel vs plain: "
+              f"{diff} > 1e-3 x {scale}")
+        log(f"parity f32 full width {arch}: kernel path == plain path on "
+            f"{toks['auto'].size} greedy tokens ({B} x (32 + 16)); forward "
+            f"(4, 512) with {n} {scan_name} launches: max |h diff| "
+            f"{diff:.3g} (max |h| {scale:.3g})")
+        out[arch] = diff / scale
+        del params, h
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1126,6 +1396,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_parity_phase()
 
+    t0 = time.perf_counter()
+    scan_err_, scan_t = scan_phase(dev, timer)
+    log(f"scan kernel checks and timings in {time.perf_counter() - t0:.1f} s")
+    wkv_launches, wkv_sum = lockstep_phase(RWKV_ARGS, "wkv_scan")
+    lru_launches, lru_sum = lockstep_phase(RG_ARGS, "lru_scan")
+    recurrent_parity_phase()
+
     entries = [
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -1168,6 +1445,22 @@ def main() -> int:
             **codec_t["int8"][name],
             int4={k: codec_t["int4"][name][k] for k in
                   ("ms", "plain_ms", "bound_ms", "library_ms")}))
+    for name, launched, path_sum, file_line in (
+            ("wkv_scan", wkv_launches, wkv_sum,
+             "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:55"),
+            ("lru_scan", lru_launches, lru_sum,
+             "src/repro/kernels/rglru_scan/rglru_scan.py:49")):
+        rows = scan_t[name]
+        decode = next(v for k, v in rows.items() if k.startswith("decode"))
+        entries.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/"
+                   f"{'rwkv6' if name == 'wkv_scan' else 'rglru'}_scan.cu",
+            replaces=file_line, launches=launched[name],
+            max_abs_err=scan_err_[name], **decode,
+            device_ms_on_path=path_sum["scan_device_ms"],
+            forward=next(v for k, v in rows.items()
+                         if k.startswith("forward"))))
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on the path")
     log(f"card: {card}")

@@ -3,8 +3,9 @@ factory (counterpart of `repro/api/build.py`): named scenario or the
 calibrated symmetric default, optional bandwidth calibration
 (`NetworkSpec.bw_scale="auto"`).
 
-The port covers the static network with the serial channel scheduler, with
-or without the wire codec; a spec that asks for anything else raises
+The port trains the dense family on the static network with the serial
+channel scheduler, with or without the wire codec; a spec that asks for
+anything else raises
 NotImplementedError naming its ROADMAP.md item (`check_scope`), never a
 silent fallback.
 """
@@ -20,9 +21,17 @@ from repro_torch.core.network import (MESH_TODO, Topology, calibrate_bw_scale,
 from repro_torch.core.protocol import NETWORK_TODO
 
 
+TRAIN_FAMILY_TODO = ("training the {} family is not ported yet (ROADMAP.md, "
+                     "Queue A: 'training of the SSM and hybrid families'); "
+                     "the port serves it (repro_torch.launch.serve)")
+
+
 def check_scope(spec: ExperimentSpec) -> None:
     """Raise NotImplementedError for the spec fields the port does not run
     yet."""
+    family = resolve_model(spec).family
+    if family != "dense":
+        raise NotImplementedError(TRAIN_FAMILY_TODO.format(family))
     n = spec.network
     if n.mesh is not None:
         raise NotImplementedError(MESH_TODO)

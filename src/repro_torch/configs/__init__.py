@@ -1,7 +1,8 @@
 """Architecture config registry of the port: ``get_config("<arch-id>")``.
 
-Holds the dense archs the serving slice runs; the other archs of the JAX
-registry join with their model families.
+Holds the archs whose model families are ported (dense, RWKV-6, the
+RecurrentGemma hybrid); the other archs of the JAX registry join with their
+families.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 
 ARCH_IDS = [
     "qwen3_0_6b",
+    "rwkv6_3b",
+    "recurrentgemma_9b",
     "paper_150m",
     "bench_tiny",
 ]

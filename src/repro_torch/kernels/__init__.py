@@ -19,6 +19,10 @@ Kernels:
                  ``csrc/delay_comp.cu``)
   delta_codec  — per-block absmax int8/int4 wire codec: `quantize_pack`
                  and `dequantize_unpack` (CUDA C++, ``csrc/delta_codec.cu``)
+  rwkv6_scan   — RWKV-6 WKV recurrence with a matrix state per head,
+                 `wkv_scan` (CUDA C++, ``csrc/rwkv6_scan.cu``)
+  rglru_scan   — RG-LRU diagonal recurrence, `lru_scan` (CUDA C++,
+                 ``csrc/rglru_scan.cu``)
 
 None of the kernels has a backward: an "auto" wrapper raises when grad mode
 is on and an input requires a gradient (`check_no_grad`), so a training
@@ -55,7 +59,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {"flash_decode": 0, "rms_norm": 0,
                              "nesterov_2d": 0, "deliver_2d": 0,
                              "delay_comp": 0, "quantize_pack": 0,
-                             "dequantize_unpack": 0}
+                             "dequantize_unpack": 0, "wkv_scan": 0,
+                             "lru_scan": 0}
 
 
 def count_launch(name: str) -> None:

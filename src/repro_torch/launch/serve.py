@@ -1,22 +1,29 @@
-"""Serving entry point of the port over the continuous-batching engine
-(counterpart of `repro/launch/serve.py`, same flags plus ``--device``).
+"""Serving entry point of the port (counterpart of `repro/launch/serve.py`,
+same flags plus ``--device``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --mode continuous --slots 8 --requests 16 --prompt-len 256 \
         --gen-len 64 --prefill-chunk 64 --cache-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --slots 8 --prompt-len 128 --gen-len 64
 
-Runs on CUDA unless ``--device cpu`` is given. Dense archs only: MoE and the
-lock-step path of the SSM/hybrid archs raise until ported (ROADMAP.md,
-Queue A). Loads params from --ckpt (theta_g of a training run of either
-package, or a bare param pytree) or random-inits them from a seeded
-torch.Generator. A fused-mode checkpoint (`--fused-updates`) stores theta_g
-as one flat fragment plane: `load_params` rebuilds the run's fragmenter from
-the checkpoint's meta and unpacks the plane into the per-leaf params.
+Runs on CUDA unless ``--device cpu`` is given. The dense family runs on the
+continuous-batching engine (`ServeEngine`); the SSM and hybrid families
+(rwkv6-3b, recurrentgemma-9b) on the lock-step path, token by token through
+`decode_step`, as the JAX package serves them; MoE raises until ported
+(ROADMAP.md, Queue A). Loads params from --ckpt (theta_g of a training run
+of either package, or a bare param pytree) or random-inits them from a
+seeded torch.Generator. A fused-mode checkpoint (`--fused-updates`) stores
+theta_g as one flat fragment plane: `load_params` rebuilds the run's
+fragmenter from the checkpoint's meta and unpacks the plane into the
+per-leaf params.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
+import time
 
 import numpy as np
 import torch
@@ -26,6 +33,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.flatplane import LANES
 from repro_torch.core.fragments import make_fragmenter
 from repro_torch.core.tree import tree_map
+from repro_torch.data import prng
 from repro_torch.kernels import resolve_device
 from repro_torch.models import api
 from repro_torch.serve import Request, ServeEngine
@@ -126,6 +134,75 @@ def _serve_engine(cfg, params, args) -> ServeEngine:
     return eng
 
 
+@dataclasses.dataclass
+class LockstepRun:
+    """What `_serve_lockstep` served: the prompts, the generated tokens and
+    the synchronised host times of the two phases."""
+    prompts: np.ndarray          # (B, P) int32
+    tokens: np.ndarray           # (B, G) int32
+    prefill_s: float
+    decode_s: float
+
+
+def _serve_lockstep(cfg, params, args, impl: str = "auto") -> LockstepRun:
+    """Lock-step path of the SSM and hybrid families (`repro/launch/serve.py`
+    `_serve_lockstep`): a batch of identical-length prompts, drawn as JAX's
+    `randint` draws them, token by token through `decode_step` (P prefill
+    steps, then G - 1 generating ones); greedy at temperature 0, else
+    categorical draws from the threefry stream fold_in(key, 0x5A17). params:
+    from `api.prepare_params`."""
+    B, P, G = args.slots, args.prompt_len, args.gen_len
+    dev = torch.device(args.device)
+    key = prng.prng_key(args.seed)
+    prompts = prng.randint(key, (B, P), 0, cfg.vocab)
+    prompts_dev = torch.from_numpy(prompts).to(dev)
+    cache_len = api.decode_cache_len(cfg, P + G)
+
+    def decode(cache, toks):
+        return api.decode_step(cfg, params, cache, toks, impl=impl)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    cache = api.init_cache(cfg, B, max(cache_len, P + G), dev)
+    for t in range(P):
+        logits, cache = decode(cache, prompts_dev[:, t])
+    sync()
+    t_prefill = time.perf_counter() - t0
+    print(f"prefill {B}x{P} tokens in {t_prefill:.2f}s "
+          f"({B*P/max(t_prefill,1e-9):.0f} tok/s)")
+
+    # a dedicated sampling stream, never the key that generated the prompts
+    sample_key = prng.fold_in(key, 0x5A17)
+
+    def sample(logits, i):
+        if args.temperature <= 0:
+            return logits.argmax(-1).to(torch.int32)
+        g = prng.gumbel(prng.fold_in(sample_key, i), tuple(logits.shape))
+        return (torch.from_numpy(g).to(dev) + logits / args.temperature
+                ).argmax(-1).to(torch.int32)
+
+    toks = sample(logits, 0)
+    outs = [toks]
+    t0 = time.perf_counter()
+    for i in range(1, G):
+        logits, cache = decode(cache, toks)
+        toks = sample(logits, i)
+        outs.append(toks)
+    gen = torch.stack(outs, dim=1).cpu().numpy()
+    dt = time.perf_counter() - t0
+    print(f"decode {B}x{G} tokens in {dt:.2f}s ({B*G/max(dt,1e-9):.1f} "
+          f"tok/s)")
+    for b in range(min(B, 4)):
+        print(f"  seq{b}: {list(map(int, gen[b][:16]))}"
+              f"{'...' if G > 16 else ''}")
+    return LockstepRun(prompts=prompts, tokens=gen, prefill_s=t_prefill,
+                       decode_s=dt)
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
@@ -149,15 +226,23 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def run(argv=None) -> ServeEngine:
-    """Parse flags, load params, serve the trace; returns the engine."""
+def run(argv=None):
+    """Parse flags, load params and serve: the dense family's trace on the
+    engine (returns the `ServeEngine`), the other families lock-step
+    (returns the `LockstepRun`)."""
     args = parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     api.family_module(cfg)          # raises for families not ported yet
+    args.device = str(resolve_device(args.device))
     params = load_params(cfg, args.ckpt, args.device)
-    return _serve_engine(cfg, params, args)
+    if cfg.family == "dense":
+        return _serve_engine(cfg, params, args)
+    # serving needs only the compute-dtype copy: give the masters up as it
+    # is made
+    params = api.prepare_params(cfg, params, release=True)
+    return _serve_lockstep(cfg, params, args)
 
 
 def main(argv=None) -> int:

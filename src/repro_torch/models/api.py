@@ -1,23 +1,18 @@
 """Model API of the port: dispatch by cfg.family (counterpart of
-`repro/models/api.py`). The dense family is ported (training and serving);
-the other families raise until their ROADMAP.md item lands."""
+`repro/models/api.py`). Ported: the dense family (training and slot-plane
+serving), the SSM family (RWKV-6) and the hybrid family (RecurrentGemma),
+the last two with their lock-step decode (`init_cache`/`decode_step`). The
+other families raise until their ROADMAP.md item lands."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import ShapeDtype, tree_map
-from repro_torch.models import transformer
+from repro_torch.models import rglru, rwkv6, transformer
 from repro_torch.models.layers import torch_dtype
 
-_FAMILY_MOD = {"dense": transformer}
+_FAMILY_MOD = {"dense": transformer, "ssm": rwkv6, "hybrid": rglru}
 
-_TODO = {
-    "moe": transformer.MOE_TODO,
-    "ssm": "the SSM family and its lock-step serving path are not ported yet "
-           "(ROADMAP.md, Queue A: 'lock-step SSM/hybrid serving')",
-    "hybrid": "the hybrid family and its lock-step serving path are not "
-              "ported yet (ROADMAP.md, Queue A: 'lock-step SSM/hybrid "
-              "serving')",
-}
+_TODO = {"moe": transformer.MOE_TODO}
 
 
 def family_module(cfg: ModelConfig):
@@ -49,8 +44,19 @@ def loss_fn(cfg: ModelConfig, params, batch, **kw):
     return family_module(cfg).loss_fn(cfg, params, batch, **kw)
 
 
-def prepare_params(cfg: ModelConfig, params):
-    return family_module(cfg).prepare_params(cfg, params)
+def prepare_params(cfg: ModelConfig, params, **kw):
+    return family_module(cfg).prepare_params(cfg, params, **kw)
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
+               device=None):
+    """The lock-step decode cache of the SSM and hybrid families."""
+    return family_module(cfg).init_cache(cfg, batch_size, cache_len, device)
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, **kw):
+    """One lock-step decode step (SSM and hybrid families)."""
+    return family_module(cfg).decode_step(cfg, params, cache, tokens, **kw)
 
 
 def init_slot_cache(cfg: ModelConfig, n_slots: int, cache_len: int,

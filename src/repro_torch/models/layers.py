@@ -1,9 +1,10 @@
 """Common model primitives of the port (counterpart of `repro/models/layers.py`):
-RMSNorm, RoPE, SwiGLU, GQA attention, q/k/v projections, init helpers,
-chunked cross-entropy.
+RMSNorm, RoPE, SwiGLU, the activations as XLA evaluates them, GQA
+attention, q/k/v projections, init helpers, chunked cross-entropy.
 
 Params are plain dicts of tensors in the JAX package's layout: layer params
-stacked along a leading layer axis, projections stored as ``x @ W``.
+stacked along a leading layer axis, projections stored as ``x @ W``. The
+hybrid's tree also holds a list (its remainder blocks, ``rem``).
 """
 from __future__ import annotations
 
@@ -37,21 +38,50 @@ def embed_init(gen: torch.Generator, shape, dtype, device):
     return (torch.randn(shape, generator=gen, device=device) * 0.02).to(dtype)
 
 
+def init_from_shapes(shapes, gen: torch.Generator, dtype, device,
+                     consts: dict):
+    """Random params for a tree of shapes (dicts and lists), drawn from
+    `gen` in the tree's order: a leaf named in `consts` is filled with that
+    value, ``embed`` takes `embed_init`, every other leaf `dense_init`."""
+    def init(name, shape):
+        if isinstance(shape, dict):
+            return {k: init(k, v) for k, v in shape.items()}
+        if isinstance(shape, list):
+            return [init(name, v) for v in shape]
+        if name in consts:
+            return torch.full(shape, consts[name], dtype=dtype, device=device)
+        if name == "embed":
+            return embed_init(gen, shape, dtype, device)
+        return dense_init(gen, shape, dtype, device)
+
+    return init("", shapes)
+
+
 # ---------------------------------------------------------------------------
 # norms / rope / mlp
 # ---------------------------------------------------------------------------
 
 
-def cast_params_for_compute(cfg: ModelConfig, params):
+def cast_params_for_compute(cfg: ModelConfig, params, *,
+                            release: bool = False):
     """AMP policy (bf16 compute over f32 masters): a copy of the float params
     in the compute dtype. The JAX package casts on every forward call; the
-    port casts once, when the serving engine is built."""
+    port casts once, when the serving engine is built. ``release=True``
+    empties `params` leaf by leaf as it casts (the caller gives the masters
+    up), so the masters and their copy never coexist whole: serving
+    recurrentgemma-9b would otherwise hold 41.8 + 20.9 GB at once."""
     compute = torch_dtype(cfg.compute_dtype)
 
-    def cast(a):
-        if isinstance(a, dict):
-            return {k: cast(v) for k, v in a.items()}
-        return a.to(compute) if a.is_floating_point() else a
+    def cast(node):
+        if isinstance(node, (dict, list)):
+            keys = list(node) if isinstance(node, dict) else range(len(node))
+            out = {} if isinstance(node, dict) else [None] * len(node)
+            for k in keys:
+                out[k] = cast(node[k])
+                if release:
+                    node[k] = None
+            return out
+        return node.to(compute) if node.is_floating_point() else node
 
     return cast(params)
 
@@ -59,6 +89,22 @@ def cast_params_for_compute(cfg: ModelConfig, params):
 def rms_norm(x, weight, eps=1e-5, *, impl: str = "auto"):
     """f32-statistics RMSNorm; the Triton kernel for CUDA tensors."""
     return rms_ops.rms_norm(x, weight, eps, impl=impl)
+
+
+def layer_slice(tree, i: int):
+    """The i-th slice along the leading (layer) axis of every leaf of a
+    dict tree of stacked params or caches (views, no copy)."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def scan_impl(flag: str) -> str:
+    """A forward's ``wkv_impl``/``lru_impl`` flag (the JAX package's "ref"
+    or "kernel") -> the scan wrapper's impl ("ref" or "auto")."""
+    impls = {"ref": "ref", "kernel": "auto"}
+    if flag not in impls:
+        raise ValueError(f"unknown scan impl {flag!r}; options: ref|kernel")
+    return impls[flag]
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -78,12 +124,40 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sigmoid(x):
+    """`jax.nn.sigmoid` as XLA evaluates it: 1/(1+exp(-x)), each op rounded
+    to x's dtype (torch.sigmoid rounds once and differs in ~30% of bf16
+    elements)."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x):
+    return x * sigmoid(x)
+
+
+def gelu_tanh(x):
+    """`jax.nn.gelu` (approximate=True, its default): the tanh form,
+    0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))), op by op in x's
+    dtype with the constants rounded to it, as JAX writes it."""
+    c = _rounded(math.sqrt(2 / math.pi), x.dtype)
+    a = _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1 + torch.tanh(c * (x + a * (x * (x * x))))))
+
+
+def _rounded(value: float, dtype) -> float:
+    """`value` rounded to `dtype`, as a host float (no device copy)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def swiglu(x, w_gate, w_up, w_down):
-    # silu as XLA evaluates jax.nn.silu: g * 1/(1+exp(-g)), each op rounded
-    # to the compute dtype (torch.sigmoid rounds once and differs in ~30% of
-    # bf16 elements)
-    g = x @ w_gate
-    return (g * (1 / (1 + torch.exp(-g))) * (x @ w_up)) @ w_down
+    return (silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def residual_mlp(cfg: ModelConfig, x, lp, impl: str):
+    """x + SwiGLU(RMSNorm(x)) with a layer's ``ln2`` and ``mlp`` params."""
+    h = rms_norm(x, lp["ln2"], cfg.rms_eps, impl=impl)
+    mlp = lp["mlp"]
+    return x + swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +196,21 @@ def gqa_attention(q, k, v, *, causal: bool, window: Optional[int],
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attn_param_shapes(cfg: ModelConfig, n: int):
+    """Shapes of `n` stacked attention layers' projections (and qk-norm
+    scales and biases where the config has them)."""
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    attn = {"wq": (n, D, H * hd), "wk": (n, D, KV * hd),
+            "wv": (n, D, KV * hd), "wo": (n, H * hd, D)}
+    if cfg.qk_norm:
+        attn.update(q_norm=(n, hd), k_norm=(n, hd))
+    if cfg.attn_bias:
+        attn.update(bq=(n, H * hd), bk=(n, KV * hd), bv=(n, KV * hd),
+                    bo=(n, D))
+    return attn
 
 
 def attn_qkv(x, lp, cfg: ModelConfig, positions, *, impl: str = "auto"):

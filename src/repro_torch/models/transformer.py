@@ -22,11 +22,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_decode import ops as fd_ops
-from repro_torch.models.layers import (attn_out, attn_qkv,
-                                       cast_params_for_compute,
-                                       chunked_cross_entropy, dense_init,
-                                       embed_init, gqa_attention, rms_norm,
-                                       swiglu, torch_dtype)
+from repro_torch.models.layers import (attn_out, attn_param_shapes,
+                                       attn_qkv, cast_params_for_compute,
+                                       chunked_cross_entropy, gqa_attention,
+                                       init_from_shapes, layer_slice,
+                                       residual_mlp, rms_norm, torch_dtype)
 
 MOE_TODO = ("MoE serving is not ported yet (ROADMAP.md, Queue A: "
             "'MoE serving')")
@@ -49,17 +49,10 @@ def param_shapes(cfg: ModelConfig):
     tree paths (``layers/attn/wq`` ...)."""
     _check_dense(cfg)
     L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    attn = {"wq": (L, D, H * hd), "wk": (L, D, KV * hd),
-            "wv": (L, D, KV * hd), "wo": (L, H * hd, D)}
-    if cfg.qk_norm:
-        attn.update(q_norm=(L, hd), k_norm=(L, hd))
-    if cfg.attn_bias:
-        attn.update(bq=(L, H * hd), bk=(L, KV * hd), bv=(L, KV * hd),
-                    bo=(L, D))
     shapes = {
         "embed": (V, D),
-        "layers": {"attn": attn, "ln1": (L, D), "ln2": (L, D),
+        "layers": {"attn": attn_param_shapes(cfg, L), "ln1": (L, D),
+                   "ln2": (L, D),
                    "mlp": {"w_gate": (L, D, F), "w_up": (L, D, F),
                            "w_down": (L, F, D)}},
         "final_norm": (D,),
@@ -69,28 +62,17 @@ def param_shapes(cfg: ModelConfig):
     return shapes
 
 
-_ONES = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
-_ZEROS = ("bq", "bk", "bv", "bo")
+# leaves with a constant init: norms 1, biases 0
+CONSTS = {"ln1": 1.0, "ln2": 1.0, "final_norm": 1.0, "q_norm": 1.0,
+          "k_norm": 1.0, "bq": 0.0, "bk": 0.0, "bv": 0.0, "bo": 0.0}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None):
     """Random master params in the JAX package's layout and init scheme
     (embed N(0, 0.02); projections N(0, 1/fan_in); norms 1; biases 0),
     drawn from `gen` (a generator on `device`) in `param_shapes` order."""
-    dtype = torch_dtype(cfg.param_dtype)
-
-    def init(name, shape):
-        if isinstance(shape, dict):
-            return {k: init(k, v) for k, v in shape.items()}
-        if name in _ONES:
-            return torch.ones(shape, dtype=dtype, device=device)
-        if name in _ZEROS:
-            return torch.zeros(shape, dtype=dtype, device=device)
-        if name == "embed":
-            return embed_init(gen, shape, dtype, device)
-        return dense_init(gen, shape, dtype, device)
-
-    return init("", param_shapes(cfg))
+    return init_from_shapes(param_shapes(cfg), gen,
+                            torch_dtype(cfg.param_dtype), device, CONSTS)
 
 
 def lm_head_weight(cfg: ModelConfig, params):
@@ -107,22 +89,9 @@ def prepare_params(cfg: ModelConfig, params):
     return cp
 
 
-def _layer(params, l: int):
-    def pick(tree):
-        return {k: pick(v) if isinstance(v, dict) else v[l]
-                for k, v in tree.items()}
-    return pick(params["layers"])
-
-
 def _logits(cfg: ModelConfig, params, x, impl: str):
     h = rms_norm(x, params["final_norm"], cfg.rms_eps, impl=impl)
     return h.float() @ params["lm_head_f32"]
-
-
-def _ffn(cfg: ModelConfig, x, lp, impl: str):
-    h = rms_norm(x, lp["ln2"], cfg.rms_eps, impl=impl)
-    mlp = lp["mlp"]
-    return x + swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -141,13 +110,13 @@ def forward(cfg: ModelConfig, params, batch):
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     for l in range(cfg.n_layers):
-        lp = _layer(cp, l)
+        lp = layer_slice(cp["layers"], l)
         h = rms_norm(x, lp["ln1"], cfg.rms_eps, impl="ref")
         q, k, v = attn_qkv(h, lp["attn"], cfg, positions, impl="ref")
         o = gqa_attention(q, k, v, causal=True, window=cfg.attn_window,
                           q_positions=positions, kv_positions=positions)
         x = x + attn_out(o, lp["attn"], cfg)
-        x = _ffn(cfg, x, lp, "ref")
+        x = residual_mlp(cfg, x, lp, "ref")
     return rms_norm(x, cp["final_norm"], cfg.rms_eps, impl="ref")
 
 
@@ -197,7 +166,7 @@ def decode_step_slotted(cfg: ModelConfig, params, cache, tokens, *, active,
     x = params["embed"][tokens][:, None, :]
     positions = pos[:, None]                            # (B, 1)
     for l in range(cfg.n_layers):
-        lp = _layer(params, l)
+        lp = layer_slice(params["layers"], l)
         h = rms_norm(x, lp["ln1"], cfg.rms_eps, impl=impl)
         q, k, v = attn_qkv(h, lp["attn"], cfg, positions, impl=impl)
         kc, vc = cache["k"][l], cache["v"][l]           # (B, C, KV, hd) views
@@ -206,7 +175,7 @@ def decode_step_slotted(cfg: ModelConfig, params, cache, tokens, *, active,
         o = fd_ops.flash_decode(q[:, 0], kc, vc, cache["kv_pos"], pos,
                                 window=window, impl=impl)[:, None]
         x = x + attn_out(o, lp["attn"], cfg)
-        x = _ffn(cfg, x, lp, impl)
+        x = residual_mlp(cfg, x, lp, impl)
     logits = _logits(cfg, params, x[:, 0], impl)
     cache["pos"] += active.to(torch.int32)
     return logits, cache
@@ -233,7 +202,7 @@ def prefill_chunk_slotted(cfg: ModelConfig, params, cache, tokens, slot: int,
     kv_mask = (kv_row >= 0)[None]
     x = params["embed"][tokens[:n_valid]][None]
     for l in range(cfg.n_layers):
-        lp = _layer(params, l)
+        lp = layer_slice(params["layers"], l)
         h = rms_norm(x, lp["ln1"], cfg.rms_eps, impl=impl)
         q, k, v = attn_qkv(h, lp["attn"], cfg, positions, impl=impl)
         kc, vc = cache["k"][l, slot], cache["v"][l, slot]   # (C, KV, hd)
@@ -245,7 +214,7 @@ def prefill_chunk_slotted(cfg: ModelConfig, params, cache, tokens, slot: int,
                           q_positions=positions, kv_positions=kv_row[None],
                           kv_mask=kv_mask)
         x = x + attn_out(o, lp["attn"], cfg)
-        x = _ffn(cfg, x, lp, impl)
+        x = residual_mlp(cfg, x, lp, impl)
     logits = _logits(cfg, params, x[0, n_valid - 1], impl)
     cache["pos"][slot] = start + n_valid
     return logits, cache

@@ -9,7 +9,12 @@ rtol = atol = 1e-5 (reduction order). bf16 at one bf16 ulp of each element
 (|a - b| <= 2^-7 |ref|: a last-bit rounding flip), plus 1e-5 of the tensor's
 magnitude for f32 reduction-order slack before the rounding. The
 outer-update and delay-compensation kernels (elementwise, no reduction) at
-rtol 1e-5, atol 1e-6, like the JAX package's kernel-vs-oracle pin.
+rtol 1e-5, atol 1e-6, like the JAX package's kernel-vs-oracle pin. The scan
+kernels (`wkv_scan`, `lru_scan`) at the JAX package's tolerance for them,
+rtol 1e-4, atol 1e-5 in f32 (o's sum over the head dimension and the
+scan's composition run in another order); `wkv_scan`'s final state and
+`lru_scan` at T = 1 bitwise (explicitly rounded operations in the plain
+version's order).
 """
 from __future__ import annotations
 
@@ -29,6 +34,10 @@ from repro_torch.kernels.outer_update.ops import (fused_deliver,  # noqa: E402
 from repro_torch.kernels.outer_update.ref import (deliver_ref,  # noqa: E402
                                                   nesterov_ref)
 from repro_torch.kernels.delta_codec import ops as codec_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ops import lru_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import lru_scan_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ops import wkv_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import wkv_scan_ref  # noqa: E402
 
 BF16_ULP = 2.0 ** -7
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -130,6 +139,32 @@ def codec_case(case, block, bits, seed):
         t[0] = levels * e
         x[:block], x[2 * block:3 * block] = t, -t
     return x
+
+
+def wkv_case(B, T, H, hd, seed):
+    """r, k, v (B, T, H, hd) at scale 0.5, decays w = sigmoid(N(0, 1)), u
+    (H, hd) at 0.1 and a state s0 (B, H, hd, hd), as the JAX package's
+    kernel tests draw them; float32 numpy."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, s=1.0):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+    r, k, v = (n(B, T, H, hd, s=0.5) for _ in range(3))
+    w = (1 / (1 + np.exp(-n(B, T, H, hd)))).astype(np.float32)
+    return r, k, v, w, n(H, hd, s=0.1), n(B, H, hd, hd)
+
+
+def lru_case(B, T, D, seed):
+    """a = sigmoid(N(0, 1)), b ~ N(0, 1) (B, T, D) and h0 (B, D); float32
+    numpy."""
+    rng = np.random.default_rng(seed)
+    a = (1 / (1 + np.exp(-rng.standard_normal((B, T, D))))).astype(np.float32)
+    return (a, rng.standard_normal((B, T, D)).astype(np.float32),
+            rng.standard_normal((B, D)).astype(np.float32))
+
+
+def assert_scan_close(got, want):
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-4, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
@@ -384,3 +419,95 @@ def test_codec_kernels_refuse_gradients_on_card(cuda):
         codec_ops.codec_roundtrip_array(x, codec="int4", block=256)
     with pytest.raises(ValueError, match="even"):
         codec_ops.encode_array(x.detach(), codec="int4", block=131)
+
+
+# (B, T, H, hd, with s0): rwkv6-3b decode (8 slots, 40 heads of 64), a
+# ragged and a long forward, the reduced and the widest head dims
+WKV_CASES = [(8, 1, 40, 64, True), (2, 300, 4, 64, True),
+             (2, 37, 3, 32, False), (1, 17, 2, 16, True),
+             (2, 20, 2, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,hd,with_s0", WKV_CASES)
+def test_wkv_scan_kernel_matches_plain_on_card(cuda, B, T, H, hd, with_s0,
+                                               dtype):
+    r, k, v, w, u, s0 = (torch.from_numpy(a).to(cuda)
+                         for a in wkv_case(B, T, H, hd, seed=T))
+    r, k, v, w = (a.to(TORCH_DT[dtype]) for a in (r, k, v, w))
+    s0 = s0 if with_s0 else None
+    o, sT = wkv_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    o_ref, s_ref = wkv_scan_ref(r, k, v, w, u, s0)
+    assert o.dtype == r.dtype
+    if dtype == "float32":
+        assert_scan_close(o, o_ref)
+    else:
+        assert_close(o, o_ref, dtype)
+    assert torch.equal(sT, s_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,with_h0", [(4, 1, 4096, True),
+                                           (3, 1, 130, False),
+                                           (4, 512, 4096, True),
+                                           (2, 300, 130, False),
+                                           (2, 300, 130, True)])
+def test_lru_scan_kernel_matches_plain_on_card(cuda, B, T, D, with_h0):
+    a, b, h0 = (torch.from_numpy(x).to(cuda) for x in lru_case(B, T, D, T))
+    h0 = h0 if with_h0 else None
+    got = lru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    want = lru_scan_ref(a, b, h0)
+    if T == 1:
+        assert torch.equal(got, want)
+    else:
+        assert_scan_close(got, want)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_refuse_gradients_on_card(cuda):
+    r, k, v, w, u, s0 = (torch.from_numpy(a).to(cuda)
+                         for a in wkv_case(1, 2, 2, 16, seed=0))
+    r.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        wkv_scan(r, k, v, w, u, s0)
+    a, b, h0 = (torch.from_numpy(x).to(cuda) for x in lru_case(1, 2, 8, 0))
+    b.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lru_scan(a, b, h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,n_layers", [("rwkv6_3b", None),
+                                           ("recurrentgemma_9b", 5)])
+def test_lockstep_decode_launches_scans_on_card(cuda, arch, n_layers):
+    """One scan launch per recurrent layer per decode step, and the kernel
+    path's logits equal the plain path's at f32 within the scans'
+    tolerance."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              n_layers=n_layers or cfg.n_layers)
+    params = api.prepare_params(cfg, api.init_params(
+        cfg, torch.Generator(cuda).manual_seed(0), cuda))
+    caches = {impl: api.init_cache(cfg, 3, 16, cuda)
+              for impl in ("auto", "ref")}
+    n_scan = (cfg.n_layers if cfg.family == "ssm" else
+              sum(kind == "rglru" for kind in
+                  (cfg.block_pattern * cfg.n_layers)[:cfg.n_layers]))
+    name = "wkv_scan" if cfg.family == "ssm" else "lru_scan"
+    tokens = torch.tensor([1, 7, 300], device=cuda)
+    for step in range(4):
+        kernels.reset_launch_counts()
+        got, _ = api.decode_step(cfg, params, caches["auto"], tokens)
+        assert kernels.launch_counts()[name] == n_scan
+        want, _ = api.decode_step(cfg, params, caches["ref"], tokens,
+                                  impl="ref")
+        torch.cuda.synchronize()
+        assert_scan_close(got, want)
+        tokens = want.argmax(-1)

@@ -127,6 +127,6 @@ def test_prefill_and_decode_match_jax(arch, reduced, compute):
 
 
 def test_unported_families_raise():
-    tcfg = dataclasses.replace(get_config("bench_tiny"), family="ssm")
+    tcfg = dataclasses.replace(get_config("bench_tiny"), family="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.init_slot_cache(tcfg, 2, 8, device="cpu")

@@ -75,6 +75,8 @@ def test_cli_needs_cuda_or_an_explicit_device():
     ["--mesh", "ring"],
     ["--topology", "asym4", "--routing", "routed"],
     ["--channel-scheduler", "fairshare"],
+    ["--arch", "rwkv6_3b", "--reduced"],
+    ["--arch", "recurrentgemma_9b", "--reduced"],
 ])
 def test_out_of_scope_options_raise(flags):
     base = ["--arch", "bench_tiny", "--workers", "4", "--steps", "2",
